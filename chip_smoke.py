@@ -12,7 +12,8 @@ exits nonzero, with no result line, on any fault.
 Phases:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the kernel build time with ``ptxas`` resource usage.
+   and the kernels' build times (one ``nvcc`` per source, all started
+   together) with ``ptxas`` resource usage.
 2. Main path, the paper's loop through ``GeoJob`` at the paper's scale: the
    8-data-center PlanetLab platform, a 20M-word Zipf corpus (``vocab`` 2^20,
    the largest the 20-bit word packing allows), ``calibrate`` →
@@ -23,14 +24,31 @@ Phases:
    beat both baselines on measured makespan, and ``model_error`` must be
    finite.  The ``segment_sum`` launch count is zeroed just before and read
    just after.
-3. Kernels against their plain versions on the card, at the shapes the main
-   path gave them (every reducer's input, recorded) and at stress shapes:
-   unsorted and out-of-range ids, a reducer without in-mapper combining,
-   and wide rows in float32 and bfloat16.  Times are CUDA-event medians.
-   Prints one ``{"kernels": [...]}`` line.
+3. ``segment_sum`` against its plain version on the card, at the shapes the
+   main path gave it (every reducer's input, recorded) and at stress
+   shapes: unsorted and out-of-range ids, a reducer without in-mapper
+   combining, and wide rows in float32 and bfloat16.  Times are CUDA-event
+   medians.
 4. Batched solver: 64 PlanetLab platforms planned in one batched solve;
    every plan valid and never worse than uniform.  Then the device busy
    share of a warm single-job solve, from ``torch.profiler``.
+5. Serving, the LM path: RecurrentGemma-9B at full width and depth (38
+   layers, d_model 4096, vocab 256000), random bfloat16 weights from a
+   seeded generator, through ``ServeEngine`` (4 slots, max_len 4096): 8
+   requests with prompts of 17, 2047, 2049, 3000 and 4 random lengths, 32
+   new tokens each.  Every request must finish with 32 tokens in the
+   vocabulary, every logit must be finite, ``flash_attention`` must launch
+   12 times per admission and ``rglru_scan`` 26 times per admission and per
+   decode step.  The launch counts are zeroed just before and read just
+   after.
+6. ``flash_attention`` and ``rglru_scan`` against their plain versions at
+   the served shapes, in bfloat16 and float32, with times; then a
+   full-width cut to depth 5 — one (rg, rg, attn) group plus the two-block
+   tail — in float32, run with the kernels and with the plain versions:
+   the logits of a 3000-token prefill and of three decode steps must
+   agree.
+
+After the phases, one ``{"kernels": [...]}`` line lists every kernel.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -47,15 +65,33 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor
-#: core) operations/s, at the full 700 W power limit.
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (non-tensor
+#: core) operations/s and dense bfloat16 tensor-core operations/s, at the
+#: full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+#: the reference's kernel tolerances (tests/test_kernels.py:19-20): the
+#: kernels sum in another order than their plain versions
+KERNEL_TOL = {"torch.float32": (2e-5, 1e-2), "torch.bfloat16": (2e-2, 1e-2)}
+#: float32 model logits, kernels against plain versions: the same float32
+#: sums in another order, carried through 5 full-width layers and the
+#: 4096-wide unembedding
+MODEL_TOL = (1e-3, 1e-3)
 
 #: main-path scale: the paper's 8-DC testbed and a 20M-word corpus
 N_DOCS, WORDS_PER_DOC, VOCAB = 20_000, 1_000, 1 << 20
 N_RESTARTS, STEPS = 24, 500
 BATCH = 64
+KERNELS = ("segment_sum", "flash_attention", "rglru_scan")
+
+#: serving scale: prompts on both sides of the 2048 window, a ragged
+#: 64-row tile (17) and the longest served prompt (3000)
+SERVE_ARCH = "recurrentgemma-9b"
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 4096, 32
+SERVE_PROMPTS = (17, 2047, 2049, 3000)
+SERVE_RANDOM_PROMPTS = 4
 
 
 def fail(msg: str) -> None:
@@ -154,14 +190,23 @@ def phase_environment():
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}  "
           f"count {torch.cuda.device_count()}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    def build(name):
+        t = time.perf_counter()
+        so = _build.build(name)
+        return so, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    so = _build.build("segment_sum")
-    _build.load("segment_sum")
-    print(f"kernel build: segment_sum -> {so.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.3f} s")
-    for line in _build.build_log("segment_sum").splitlines():
-        if "ptxas info" in line:
-            print(f"  {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
+        built = dict(zip(KERNELS, pool.map(build, KERNELS)))
+    print(f"kernel builds, in parallel: {time.perf_counter() - t0:.3f} s")
+    for name, (so, secs) in built.items():
+        _build.load(name)
+        print(f"kernel build: {name} -> {so.relative_to(ROOT)} in {secs:.3f} s")
+        for line in _build.build_log(name).splitlines():
+            if "ptxas info" in line:
+                print(f"  {line.strip()}")
     return smi[0]
 
 
@@ -267,13 +312,13 @@ def _reduce_tensors(keys, values, device):
     return v, torch.from_numpy(seg).to(device), int(uniq.shape[0])
 
 
-def phase_kernels(device, reducer_inputs, launches):
+def phase_segment_sum(device, reducer_inputs, launches):
     import numpy as np
     import torch
     from repro_torch.kernels.ref import segment_sum_ref
     from repro_torch.kernels.segment_reduce import segment_sum
 
-    print("== phase 3: kernels against their plain versions", flush=True)
+    print("== phase 3: segment_sum against its plain version", flush=True)
     gen = torch.Generator(device="cpu").manual_seed(0)
     # (label, values, ids, S, atol, rtol); tolerances: integer-valued float32
     # sums below 2^24 are exact in any order; N(0,1) float32 sums of a few
@@ -360,7 +405,7 @@ def phase_kernels(device, reducer_inputs, launches):
                 "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
                 "shape": {"N": n, "S": s, "D": d, "dtype": str(v.dtype)},
             }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    return entry
 
 
 def phase_batched_solver(device, batch=BATCH, n_restarts=N_RESTARTS,
@@ -385,6 +430,51 @@ def phase_batched_solver(device, batch=BATCH, n_restarts=N_RESTARTS,
           f"{batch / wall!r} plans/s")
 
 
+def device_activity(prof):
+    """(busy µs, device event count, µs by kernel name) of a profile: busy
+    time is the union of the device intervals (kernels, copies, fills)."""
+    import torch
+
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return busy_us, len(spans), by_name
+
+
+def profile_breakdown(fn, label, top=8):
+    """Where one call of ``fn`` spends its time on the card: host wall,
+    device busy share and the ``top`` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    busy_us, n, by_name = device_activity(prof)
+    if not n:
+        print(f"profile {label}: wall {wall_us / 1e3!r} ms, device time not "
+              "measured (the profiler recorded no device activity)")
+        return
+    total = sum(by_name.values())
+    print(f"profile {label}: wall {wall_us / 1e3!r} ms (profiled)  device busy "
+          f"{busy_us / 1e3!r} ms  busy share {busy_us / wall_us!r}  device "
+          f"events {n}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {us / 1e3:10.3f} ms  {us / total:6.1%}  {name[:110]}")
+
+
 def solver_device_share(device, n_restarts=N_RESTARTS, steps=50):
     """Where a warm single-job solve spends its time: device activity
     (kernels, copies, fills) from ``torch.profiler`` over the host wall
@@ -405,20 +495,369 @@ def solver_device_share(device, n_restarts=N_RESTARTS, steps=50):
         t = time.perf_counter()
         solve()
         wall = time.perf_counter() - t
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for lo, hi in spans:  # union of the device intervals
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-    if not spans:
+    busy_us, n_events, _ = device_activity(prof)
+    if not n_events:
         print(f"solver profile {n_restarts}x{steps}: wall {wall!r} s, device "
               "time not measured (the profiler recorded no device activity)")
         return
     print(f"solver profile {n_restarts}x{steps}: wall {wall!r} s  device busy "
           f"{busy_us / 1e6!r} s  busy share {busy_us / 1e6 / wall!r}  device "
-          f"launches {len(spans)} ({len(spans) / steps!r} per step)")
+          f"launches {n_events} ({n_events / steps!r} per step)")
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path
+# ---------------------------------------------------------------------------
+
+def serve_prompts(vocab, seed=0, fixed=SERVE_PROMPTS, n_random=SERVE_RANDOM_PROMPTS,
+                  longest=max(SERVE_PROMPTS)):
+    """The served prompts: the fixed lengths, then random ones, tokens
+    uniform over the vocabulary, all from one seeded numpy generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = list(fixed) + [int(n) for n in rng.integers(16, longest + 1,
+                                                          size=n_random)]
+    return [rng.integers(0, vocab, size=n).astype(np.int32) for n in lengths]
+
+
+def phase_serving(device, cfg=None, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                  new_tokens=SERVE_NEW, prompts=None):
+    """RecurrentGemma through ServeEngine in bfloat16; returns the kernels'
+    launch counts of the run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.segment_reduce import segment_sum
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    print("== phase 5: serving (ServeEngine, bfloat16)", flush=True)
+    cfg = cfg or get_config(SERVE_ARCH)
+    n_attn = sum(b.mixer == "attn" for b in cfg.pattern) * cfg.n_groups + sum(
+        b.mixer == "attn" for b in cfg.tail)
+    n_rglru = sum(b.mixer == "rglru" for b in cfg.pattern) * cfg.n_groups + sum(
+        b.mixer == "rglru" for b in cfg.tail)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {cfg.n_params() / 1e9:.3f} B parameters; "
+          f"{n_attn} attention and {n_rglru} RG-LRU layers")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = M.init(cfg, gen, device=device, dtype=torch.bfloat16)
+    _sync(device)
+    n_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    print(f"init: {n_bytes / 1e9:.3f} GB of weights in {time.perf_counter() - t:.3f} s")
+    eng = ServeEngine(cfg, params, ServeConfig(
+        slots=slots, max_len=max_len, compute_dtype=torch.bfloat16,
+        use_kernels=True, seed=0), device=device)
+    prompts = prompts if prompts is not None else serve_prompts(cfg.vocab)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    print(f"requests: {len(reqs)}, prompt lengths {[len(p) for p in prompts]}, "
+          f"{new_tokens} new tokens each")
+
+    records = {"prefill": [], "decode": []}
+    real = {"prefill": M.prefill, "decode": M.decode_step}
+
+    def timed(kind):
+        def run(*args, **kwargs):
+            _sync(device)
+            before = (flash_attention.launches, rglru_scan.launches)
+            t0 = time.perf_counter()
+            logits, cache, aux = real[kind](*args, **kwargs)
+            finite = bool(torch.isfinite(logits).all())
+            _sync(device)
+            records[kind].append({
+                "s": time.perf_counter() - t0, "finite": finite,
+                "T": int(logits.shape[1]),
+                "flash": flash_attention.launches - before[0],
+                "rglru": rglru_scan.launches - before[1]})
+            return logits, cache, aux
+        return run
+
+    for r in reqs:
+        eng.submit(r)
+    M.prefill, M.decode_step = timed("prefill"), timed("decode")
+    try:
+        flash_attention.launches = rglru_scan.launches = segment_sum.launches = 0
+        t = time.perf_counter()
+        done = eng.run()
+        _sync(device)
+        wall = time.perf_counter() - t
+        launches = {"flash_attention": flash_attention.launches,
+                    "rglru_scan": rglru_scan.launches,
+                    "segment_sum": segment_sum.launches}
+    finally:
+        M.prefill, M.decode_step = real["prefill"], real["decode"]
+
+    check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} requests finished")
+    for r in reqs:
+        check(r.done and len(r.output) == new_tokens,
+              f"request {r.rid}: {len(r.output)} tokens, wanted {new_tokens}")
+        check(all(0 <= tok < cfg.vocab for tok in r.output),
+              f"request {r.rid}: a token outside [0, {cfg.vocab})")
+    pre, dec = records["prefill"], records["decode"]
+    check(all(x["finite"] for x in pre + dec), "a logit is not finite")
+    check(len(pre) == len(reqs), f"{len(pre)} prefills for {len(reqs)} requests")
+    for x in pre:
+        check(x["flash"] == n_attn and x["rglru"] == n_rglru,
+              f"prefill of {x['T']} tokens launched flash_attention "
+              f"{x['flash']} and rglru_scan {x['rglru']} times, wanted "
+              f"{n_attn} and {n_rglru}")
+    for x in dec:
+        check(x["flash"] == 0 and x["rglru"] == n_rglru,
+              f"decode step launched flash_attention {x['flash']} and "
+              f"rglru_scan {x['rglru']} times, wanted 0 and {n_rglru}")
+    check(launches["flash_attention"] == n_attn * len(pre)
+          and launches["rglru_scan"] == n_rglru * (len(pre) + len(dec)),
+          f"launch counts {launches} do not add up")
+    check(launches["flash_attention"] > 0 and launches["rglru_scan"] > 0,
+          "the serving path launched no kernel")
+    decode_s = sum(x["s"] for x in dec)
+    decode_tokens = sum(len(r.output) - 1 for r in reqs)
+    for x in pre:
+        print(f"prefill T={x['T']:5d}: {x['s']!r} s")
+    print(f"decode: {len(dec)} steps, {decode_tokens} tokens in {decode_s!r} s: "
+          f"{decode_tokens / decode_s!r} tokens/s, {decode_s / len(dec) * 1e3!r} "
+          f"ms/step (first step {dec[0]['s'] * 1e3!r} ms)")
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    print(f"serving wall {wall!r} s; launches {launches}; peak device memory "
+          f"{peak / 1e9!r} GB; card {torch.cuda.get_device_name(0) if device.type == 'cuda' else device}")
+    if device.type == "cuda":
+        longest = max(prompts, key=len)
+        batch = {"tokens": torch.zeros((slots, 1), dtype=torch.long, device=device),
+                 "positions": torch.full((slots, 1), len(longest), device=device)}
+        profile_breakdown(lambda: M.decode_step(cfg, eng.params, batch, eng.cache,
+                                                use_kernels=True),
+                          f"decode step ({slots} slots)")
+        tokens = torch.as_tensor(longest[None].astype("int64"), device=device)
+        profile_breakdown(lambda: M.prefill(cfg, eng.params, {"tokens": tokens},
+                                            max_cache_len=max_len,
+                                            use_kernels=True),
+                          f"prefill of {len(longest)} tokens")
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _close(got, want, atol, rtol):
+    """(ok, max |err|) of ``got`` against ``want`` under atol + rtol·|want|."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    ok = bool(torch.all(err <= atol + rtol * want.float().abs()))
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+def live_pairs(t_len, s_len, causal, window, q_offset):
+    """(query, key) pairs that the mask lets through, for one head."""
+    total = 0
+    for t in range(t_len):
+        hi = min(s_len - 1, t + q_offset) if causal else s_len - 1
+        lo = max(0, t + q_offset - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bound_ms(q, k, causal, window, q_offset):
+    """Least time: q, k, v read once and the output written once, against
+    2·Dh multiply-adds (QKᵀ and PV) per live pair and head."""
+    B, Hq, T, Dh = q.shape
+    S = k.shape[2]
+    elem = q.element_size()
+    n_bytes = (2 * B * Hq * T * Dh + 2 * k.numel()) * elem
+    ops = 4 * Dh * B * Hq * live_pairs(T, S, causal, window, q_offset)
+    rate = BF16_OPS_PER_S if elem == 2 else F32_OPS_PER_S
+    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def rglru_bound_ms(x, has_h0):
+    """Least time: x and a read, y written, h0 read and h_T written once;
+    about 7 float32 operations per element."""
+    B, T, D = x.shape
+    n_bytes = 3 * x.numel() * x.element_size() + (2 if has_h0 else 1) * B * D * 4
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 7 * x.numel() / F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_lm_kernels(device, launches, lengths=(17, 2049, 3000), hq=16, dh=256,
+                     window=2048, width=4096, slots=SERVE_SLOTS):
+    """flash_attention and rglru_scan against their plain versions at the
+    served shapes, and their times; returns their kernels-line entries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref, rglru_scan_ref
+    from repro_torch.kernels.rglru_scan import rglru_scan
+
+    print("== phase 6a: flash_attention and rglru_scan against their plain "
+          "versions", flush=True)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+
+    def normal(*shape, dtype):
+        return torch.randn(shape, generator=gen).to(device, dtype)
+
+    errs = {"flash_attention": 0.0, "rglru_scan": 0.0}
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = KERNEL_TOL[str(dtype)]
+        for t_len in lengths:
+            for q_offset in (0, 1000):
+                s_len = t_len + q_offset
+                q = normal(1, hq, t_len, dh, dtype=dtype)
+                k = normal(1, 1, s_len, dh, dtype=dtype)
+                v = normal(1, 1, s_len, dh, dtype=dtype)
+                got = flash_attention(q, k, v, causal=True, window=window,
+                                      q_offset=q_offset)
+                _sync(device)
+                want = attention_ref(q, k, v, causal=True, window=window,
+                                     q_offset=q_offset)
+                ok, err = _close(got, want, atol, rtol)
+                check(ok and got.dtype == q.dtype, f"flash_attention T={t_len} "
+                      f"S={s_len} q_offset={q_offset} {dtype}: max |err| {err} "
+                      f"over atol {atol} rtol {rtol}")
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+                print(f"flash_attention (1,{hq},{t_len},{dh}) S={s_len} window "
+                      f"{window} q_offset {q_offset} {dtype}: max |err| {err!r} "
+                      f"(atol {atol}, rtol {rtol})")
+                if t_len == max(lengths) and q_offset == 0:
+                    timed[("flash_attention", dtype)] = (q, k, v)
+        for b, t_len, label in ((1, max(lengths), "prefill"), (slots, 1, "decode")):
+            x = normal(b, t_len, width, dtype=dtype)
+            a = torch.sigmoid(normal(b, t_len, width, dtype=torch.float32)).to(dtype)
+            h0 = (torch.zeros(b, width, device=device) if label == "prefill"
+                  else normal(b, width, dtype=torch.float32))
+            y, h_t = rglru_scan(x, a, h0)
+            _sync(device)
+            y_ref, h_ref = rglru_scan_ref(x, a, h0)
+            ok_y, err_y = _close(y, y_ref, atol, rtol)
+            ok_h, err_h = _close(h_t, h_ref, atol, rtol)
+            check(ok_y and ok_h and y.dtype == dtype and h_t.dtype == torch.float32,
+                  f"rglru_scan {label} {dtype}: max |err| y {err_y} h_T {err_h}")
+            errs["rglru_scan"] = max(errs["rglru_scan"], err_y, err_h)
+            print(f"rglru_scan {label} ({b},{t_len},{width}) {dtype} with h0: max "
+                  f"|err| y {err_y!r} h_T {err_h!r} (atol {atol}, rtol {rtol})")
+            timed[("rglru_scan", dtype, label)] = (x, a, h0)
+
+    # times at the served shapes: the bf16 prefill of the longest prompt,
+    # and the decode step, whose recurrence runs in float32 (the float32
+    # serving cache promotes it, as in the reference)
+    q, k, v = timed[("flash_attention", torch.bfloat16)]
+    t_len = q.shape[2]
+    mask = torch.ones(t_len, t_len, dtype=torch.bool, device=device).tril()
+    mask &= ~torch.ones_like(mask).tril(-window)
+    kx, vx = k.expand(q.shape), v.expand(q.shape)  # MQA as views
+    ms = time_ms(lambda: flash_attention(q, k, v, window=window), runs=10,
+                 per_run=5)
+    dev_ms = kernel_device_ms(lambda: flash_attention(q, k, v, window=window),
+                              "flash_attention_kernel", calls=5)
+    plain = time_ms(lambda: attention_ref(q, k, v, window=window), runs=5,
+                    per_run=1, warmup=1)
+    library = time_ms(lambda: F.scaled_dot_product_attention(
+        q, kx, vx, attn_mask=mask), runs=10, per_run=5)
+    bound, bound_by = flash_bound_ms(q, k, True, window, 0)
+    print(f"timing flash_attention (1,{hq},{t_len},{dh}) window {window} "
+          f"{q.dtype}: wrapper {ms!r} ms  kernel (device) {dev_ms!r} ms  plain "
+          f"{plain!r} ms  library (sdpa, boolean mask) {library!r} ms  bound "
+          f"{bound!r} ms ({bound_by})")
+    entries = [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29",
+        "launches": launches["flash_attention"],
+        "max_abs_err": errs["flash_attention"], "ms": ms,
+        "kernel_device_ms": dev_ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
+        "shape": {"B": 1, "Hq": hq, "Hkv": 1, "T": t_len, "S": t_len,
+                  "Dh": dh, "window": window, "dtype": str(q.dtype)},
+    }]
+    for key in (("rglru_scan", torch.bfloat16, "prefill"),
+                ("rglru_scan", torch.float32, "decode")):
+        x, a, h0 = timed[key]
+        ms = time_ms(lambda: rglru_scan(x, a, h0), runs=10, per_run=5)
+        dev_ms = kernel_device_ms(lambda: rglru_scan(x, a, h0),
+                                  "rglru_scan_kernel", calls=5)
+        plain = time_ms(lambda: rglru_scan_ref(x, a, h0), runs=3, per_run=1,
+                        warmup=1)
+        bound, bound_by = rglru_bound_ms(x, True)
+        print(f"timing rglru_scan {key[2]} {tuple(x.shape)} {key[1]}: wrapper "
+              f"{ms!r} ms  kernel (device) {dev_ms!r} ms  plain {plain!r} ms  "
+              f"library none  bound {bound!r} ms ({bound_by})")
+        if key[2] == "prefill":
+            entries.append({
+                "name": "rglru_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                "replaces": "src/repro/kernels/rglru_scan.py:25",
+                "launches": launches["rglru_scan"],
+                "max_abs_err": errs["rglru_scan"], "ms": ms,
+                "kernel_device_ms": dev_ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+                "shape": {"B": 1, "T": x.shape[1], "D": width,
+                          "dtype": str(x.dtype)},
+            })
+    return entries
+
+
+def phase_model_kernels_vs_plain(device, cfg=None, prompt_len=3000,
+                                 max_len=SERVE_MAX_LEN, steps=3):
+    """One full-width (rg, rg, attn) group plus the two-block tail (depth
+    5), float32: prefill and decode logits with the kernels against the
+    plain versions, on the same tokens."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    print("== phase 6b: one full-width group plus the tail, kernels against "
+          "plain versions (float32)", flush=True)
+    base = cfg or get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(base, n_layers=len(base.pattern) + len(base.tail))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    params = M.init(cfg, gen, device=device, dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, prompt_len)),
+                             device=device)
+    feed = rng.integers(0, cfg.vocab, size=steps)  # the same decode tokens
+    atol, rtol = MODEL_TOL
+    out = {}
+    for use_kernels in (True, False):
+        logits, cache, _ = M.prefill(cfg, params, {"tokens": tokens},
+                                     max_cache_len=max_len,
+                                     use_kernels=use_kernels)
+        # the prefill cache is float32 here, as the serving cache is, and
+        # padded to max_len: decode runs on it directly
+        outs = [logits]
+        for i, tok in enumerate(feed):
+            batch = {"tokens": torch.tensor([[int(tok)]], device=device),
+                     "positions": torch.tensor([[prompt_len + i]], device=device)}
+            outs.append(M.decode_step(cfg, params, batch, cache,
+                                      use_kernels=use_kernels)[0])
+        _sync(device)
+        out[use_kernels] = outs
+    for i, (got, want) in enumerate(zip(out[True], out[False])):
+        label = "prefill" if i == 0 else f"decode step {i}"
+        ok, err = _close(got, want, atol, rtol)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"{label}: max |err| {err} over atol {atol} rtol {rtol}")
+        print(f"{cfg.name} depth {cfg.n_layers}, {label} logits "
+              f"{tuple(got.shape)}: kernels vs plain max |err| {err!r} (atol "
+              f"{atol}, rtol {rtol}; max |logit| {float(want.abs().max())!r})")
+    del params
 
 
 def main() -> None:
@@ -436,9 +875,13 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_environment()
     reducer_inputs, launches = phase_main_path(device)
-    phase_kernels(device, reducer_inputs, launches)
+    entries = [phase_segment_sum(device, reducer_inputs, launches)]
     phase_batched_solver(device)
     solver_device_share(device)
+    served = phase_serving(device)
+    entries += phase_lm_kernels(device, served)
+    phase_model_kernels_vs_plain(device)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

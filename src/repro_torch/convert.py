@@ -4,14 +4,18 @@ The reference's platforms and plans arrive as plain dicts of numpy arrays
 and scalars — the form :func:`dataclasses.asdict` gives of a
 ``repro.core.platform.Platform`` or ``repro.core.plan.ExecutionPlan``,
 nested ``Substrate``, ``CapacityTrace`` and ``FailureTrace`` fields
-included — so that this module needs nothing of the reference package.
+included — and an LM's parameters as a nested dict of numpy arrays (what
+``jax.tree.map(np.asarray, params)`` gives), so that this module needs
+nothing of the reference package.
 """
 from __future__ import annotations
 
 from typing import Any, Mapping, Optional
 
 import numpy as np
+import torch
 
+from ._device import resolve_device
 from .core.plan import ExecutionPlan
 from .core.platform import (
     CapacityTrace,
@@ -20,8 +24,10 @@ from .core.platform import (
     Platform,
     Substrate,
 )
+from .models.config import ArchConfig
 
-__all__ = ["plan_from_fields", "platform_from_fields", "substrate_from_fields"]
+__all__ = ["lm_params_from_numpy", "plan_from_fields", "platform_from_fields",
+           "substrate_from_fields"]
 
 _CAPACITIES = ("B_sm", "B_mr", "C_m", "C_r")
 _CLUSTERS = ("cluster_s", "cluster_m", "cluster_r")
@@ -69,3 +75,33 @@ def plan_from_fields(fields: Mapping[str, Any]) -> ExecutionPlan:
     """An :class:`ExecutionPlan` from ``x``, ``y`` and ``meta``."""
     return ExecutionPlan(x=np.asarray(fields["x"]), y=np.asarray(fields["y"]),
                          meta=str(fields.get("meta", "")))
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
+                         dtype: Optional[torch.dtype] = None,
+                         device=None) -> dict:
+    """The port's parameters of ``cfg`` from the reference's parameter tree
+    as numpy arrays.  The port keeps the reference's layout, ``groups``
+    stacked on a leading axis included, so each leaf maps one to one.  With
+    ``dtype``, float leaves but ``final_norm``'s are cast to it (the
+    compute dtype, cast once); ``device`` defaults to the process default.
+    """
+    dev = resolve_device(device)
+    expected = {"embed", "groups", "final_norm"}
+    if cfg.tail:
+        expected.add("tail")
+    if not cfg.tie_embeddings:
+        expected.add("unembed")
+    if set(tree) != expected:
+        raise ValueError(f"{cfg.name}: parameter tree has {sorted(tree)}, "
+                         f"expected {sorted(expected)}")
+
+    def convert(node, top):
+        if isinstance(node, Mapping):
+            return {k: convert(v, top) for k, v in node.items()}
+        t = torch.from_numpy(np.array(node))
+        if dtype is not None and t.is_floating_point() and top != "final_norm":
+            t = t.to(dtype)
+        return t.to(dev)
+
+    return {k: convert(v, k) for k, v in tree.items()}

@@ -2,11 +2,18 @@
 
 * :mod:`repro_torch.kernels.segment_reduce` — ``segment_sum``, CUDA C++ in
   ``csrc/segment_sum.cu`` (word count's reduce).
+* :mod:`repro_torch.kernels.flash_attention` — ``flash_attention``, CUDA
+  C++ in ``csrc/flash_attention.cu`` (local-attention prefill).
+* :mod:`repro_torch.kernels.rglru_scan` — ``rglru_scan``, CUDA C++ in
+  ``csrc/rglru_scan.cu`` (the RG-LRU recurrence, prefill and decode).
 * :mod:`repro_torch.kernels.ref` — the plain PyTorch versions.
-* :mod:`repro_torch.kernels.ops` — the entry points the engine calls.
+* :mod:`repro_torch.kernels.ops` — the entry points the models and the
+  engine call.
 * :mod:`repro_torch.kernels._build` — ``nvcc`` build and ctypes loader.
 """
 from . import ops, ref
+from .flash_attention import flash_attention
+from .rglru_scan import rglru_scan
 from .segment_reduce import segment_sum
 
-__all__ = ["ops", "ref", "segment_sum"]
+__all__ = ["flash_attention", "ops", "ref", "rglru_scan", "segment_sum"]

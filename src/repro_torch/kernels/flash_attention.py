@@ -1,0 +1,114 @@
+"""Forward flash attention on Hopper — RecurrentGemma's local-attention
+prefill.
+
+Replaces the TPU kernel :func:`repro.kernels.flash_attention._attn_kernel`
+(blockwise online softmax with the running max, normaliser and accumulator
+in VMEM across a sequential kv grid axis) with the hand-written CUDA C++
+kernel ``csrc/flash_attention.cu`` for ``sm_90a``.  The function is bound
+by operations on the H100; this first kernel keeps the online softmax in
+float32 on the CUDA cores and skips every kv tile that no query of the
+tile can see, as the TPU kernel does; see the note in the source.
+
+For a tensor on the CPU the wrapper computes the plain version
+:func:`repro_torch.kernels.ref.attention_ref`; for a CUDA tensor it
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from . import _build
+from .ref import attention_ref
+
+__all__ = ["flash_attention"]
+
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
+#: widest head the kernel takes (its largest instantiation)
+MAX_HEAD_DIM = 256
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(dtype: torch.dtype):
+    fn = getattr(_build.load("flash_attention"), _ENTRY[dtype])
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, i32, i64, i64,
+                   ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: q on {q.device}, need cuda")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} dtype {t.dtype}, q "
+                            f"dtype {q.dtype}")
+    if q.dtype not in _ENTRY:
+        raise TypeError(f"flash_attention: dtype {q.dtype}, need float32 or "
+                        "bfloat16")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash_attention: need q (B, Hq, T, Dh) and k, v (B, Hkv, S, Dh); "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, _, Dh = q.shape
+    if k.shape[0] != B or k.shape[3] != Dh:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    if k.shape[1] == 0 or Hq % k.shape[1]:
+        raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of "
+                         f"Hkv={k.shape[1]}")
+    if Dh > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {Dh} > {MAX_HEAD_DIM}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window={window}, need >= 1 or "
+                         "None")
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Hq, T, Dh)
+    k: torch.Tensor,  # (B, Hkv, S, Dh)
+    v: torch.Tensor,  # (B, Hkv, S, Dh)
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """GQA attention with causal, sliding-window and ``q_offset`` masking,
+    scale ``Dh**-0.5``, float32 softmax; ``(B, Hq, T, Dh)`` in q's dtype.
+    A query that sees no key gives 0.  Each kernel launch adds one to
+    ``flash_attention.launches``."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    _check(q, k, v, window)
+    B, Hq, T, Dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _kernel(q.dtype)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, Hq, Hkv, T, S, Dh, int(bool(causal)),
+                -1 if window is None else int(window), int(q_offset),
+                Dh ** -0.5, stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"flash_attention: kernel launch failed with "
+                               f"CUDA error {rc}")
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

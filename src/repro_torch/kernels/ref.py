@@ -7,9 +7,77 @@ no yardstick of speed.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-__all__ = ["segment_sum_ref"]
+__all__ = ["attention_ref", "rglru_scan_ref", "segment_sum_ref"]
+
+
+def attention_ref(
+    q: torch.Tensor,  # (B, Hq, T, Dh)
+    k: torch.Tensor,  # (B, Hkv, S, Dh)
+    v: torch.Tensor,  # (B, Hkv, S, Dh)
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Multi-head attention with GQA, causal and sliding-window masking.
+
+    ``q_offset`` positions the queries inside the kv sequence (decode /
+    chunked prefill): query ``t`` attends to keys ``<= t + q_offset``.
+    ``window``: keys further than ``window-1`` behind the query are masked.
+    Logits and softmax in float32, scale ``Dh**-0.5``; a fully-masked row
+    gives 0, not NaN; the result is in q's dtype.
+    """
+    B, Hq, T, Dh = q.shape
+    _, Hkv, S, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    group = Hq // Hkv
+    if scale is None:
+        scale = Dh ** -0.5
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    logits = torch.einsum("bhtd,bhsd->bhts", q.float(), kr) * scale
+    q_pos = torch.arange(T, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    # fully-masked rows produce NaN from softmax(-inf); zero them
+    probs = probs.masked_fill(~mask.any(dim=-1)[:, None], 0.0)
+    out = torch.einsum("bhts,bhsd->bhtd", probs, vr)
+    return out.to(q.dtype)
+
+
+def rglru_scan_ref(
+    x: torch.Tensor,  # (B, T, D) gated input
+    a: torch.Tensor,  # (B, T, D) recurrence gate in (0, 1)
+    h0: Optional[torch.Tensor] = None,  # (B, D)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU diagonal linear recurrence (RecurrentGemma):
+
+      h_t = a_t ⊙ h_{t-1} + sqrt(1 − a_t²) ⊙ x_t
+
+    Returns ``(h_all, h_T)``: the full hidden sequence in x's dtype and the
+    final state in float32.
+    """
+    B, T, D = x.shape
+    xf, af = x.float(), a.float()
+    h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    inject = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * xf
+    hs = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
+    for t in range(T):
+        h = af[:, t] * h + inject[:, t]
+        hs[:, t] = h
+    return hs.to(x.dtype), h
 
 
 def segment_sum_ref(

@@ -1,0 +1,380 @@
+"""Model layers on torch: norms, RoPE, attention (GQA / qk-norm / sliding
+window / NoPE, int8 decode cache), SwiGLU & GeGLU MLPs and the RG-LRU
+block — the parts of :mod:`repro.models.layers` that the serving slice
+runs.
+
+Layers are functions over parameter dicts with the reference's names and
+tensor layouts.  Matrix products follow jax's type promotion: a float32
+activation against a bfloat16 weight is computed in float32, as the
+reference computes it.  Each ``init_*`` takes a ``torch.Generator`` on the
+target device and an optional ``stack`` prefix, the leading group axis of
+the stacked parameters.
+
+Attention picks one of three evaluation strategies, as the reference does:
+
+* ``ref`` dense — small shapes and decode steps;
+* ``chunked`` — a plain online-softmax loop over (q, kv) blocks, what
+  ``use_kernel=False`` takes above ``_DENSE_LOGITS_LIMIT``;
+* ``kernel`` — the Hopper flash kernel (:mod:`repro_torch.kernels`).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops as kops
+from ..kernels import ref as kref
+from .config import ArchConfig, Block
+
+Params = Dict[str, Any]
+Stack = Tuple[int, ...]
+
+_INIT_SCALE = 1.0
+
+
+def _normal(gen: torch.Generator, shape, std: float,
+            dtype: torch.dtype) -> torch.Tensor:
+    """N(0, std²) drawn in float32 on the generator's device, then cast."""
+    w = torch.randn(tuple(shape), generator=gen, device=gen.device)
+    return w.mul_(std).to(dtype)
+
+
+def _dense_init(gen: torch.Generator, shape, in_axis_size: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    return _normal(gen, shape, _INIT_SCALE / np.sqrt(in_axis_size), dtype)
+
+
+def _ein(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum`` with jax's promotion: both operands in their common type."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum(eq, x.to(dt), w.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg: ArchConfig, stack: Stack = (), device=None,
+              dtype: torch.dtype = torch.float32) -> Params:
+    shape = tuple(stack) + (cfg.d_model,)
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.ones(shape, device=device, dtype=dtype)}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(shape, device=device, dtype=dtype),
+                "bias": torch.zeros(shape, device=device, dtype=dtype)}
+    if cfg.norm == "nonparam_ln":  # OLMo: LN without learnable params
+        return {}
+    raise ValueError(cfg.norm)
+
+
+def apply_norm(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        rms = torch.sqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+        return (xf / rms * p["scale"]).to(x.dtype)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)  # jnp.var: population
+    out = (xf - mean) / torch.sqrt(var + 1e-5)
+    if cfg.norm == "layernorm":
+        out = out * p["scale"] + p["bias"]
+    return out.to(x.dtype)
+
+
+def _rms_headwise(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    rms = torch.sqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+    return (xf / rms * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embedding
+# ---------------------------------------------------------------------------
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, H, T, Dh); positions: (B, T) or (T,).  Angles in float32."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[:, None, :, None].float() * freqs  # (B, 1, T, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg: ArchConfig, gen: torch.Generator, stack: Stack = (),
+                   dtype: torch.dtype = torch.float32) -> Params:
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    s = tuple(stack)
+    p = {
+        "wq": _dense_init(gen, s + (d, H, Dh), d, dtype),
+        "wk": _dense_init(gen, s + (d, Hkv, Dh), d, dtype),
+        "wv": _dense_init(gen, s + (d, Hkv, Dh), d, dtype),
+        "wo": _dense_init(gen, s + (H, Dh, d), H * Dh, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_scale"] = torch.ones(s + (Dh,), device=gen.device, dtype=dtype)
+        p["k_scale"] = torch.ones(s + (Dh,), device=gen.device, dtype=dtype)
+    return p
+
+
+def chunked_attention(
+    q, k, v, causal: bool, window: Optional[int], q_offset: int,
+    block_q: int = 512, block_k: int = 512,
+) -> torch.Tensor:
+    """Online-softmax attention as a plain loop over (q, kv) blocks;
+    temporaries are (B, H, bq, bk).  Matches ``kref.attention_ref``.  Blocks
+    that no query of the q block can see are skipped: they would add
+    nothing."""
+    B, Hq, T, Dh = q.shape
+    _, Hkv, S, _ = k.shape
+    group = Hq // Hkv
+    scale = Dh ** -0.5
+    bq, bk = min(block_q, T), min(block_k, S)
+    qf = q.float().reshape(B, Hkv, group, T, Dh)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((B, Hkv, group, T, Dh), dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, T, bq):
+        qc = qf[:, :, :, q0:q0 + bq]
+        nq = qc.shape[3]
+        q_pos = torch.arange(q0, q0 + nq, device=q.device)[:, None] + q_offset
+        m = torch.full((B, Hkv, group, nq, 1), float("-inf"), device=q.device)
+        l = torch.zeros((B, Hkv, group, nq, 1), device=q.device)
+        acc = torch.zeros((B, Hkv, group, nq, Dh), device=q.device)
+        for k0 in range(0, S, bk):
+            if causal and k0 > q0 + nq - 1 + q_offset:
+                break
+            nk = min(bk, S - k0)
+            if window is not None and k0 + nk - 1 <= q0 + q_offset - window:
+                continue
+            s = torch.einsum("bkgqd,bksd->bkgqs", qc, kf[:, :, k0:k0 + nk])
+            s = s * scale
+            k_pos = torch.arange(k0, k0 + nk, device=q.device)[None, :]
+            mask = torch.ones((nq, nk), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= k_pos <= q_pos
+            if window is not None:
+                mask &= k_pos > q_pos - window
+            s = s.masked_fill(~mask, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+            alpha = torch.where(torch.isinf(m), 0.0, torch.exp(m - m_safe))
+            p = torch.exp(s - m_safe).masked_fill(~mask, 0.0)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bkgqs,bksd->bkgqd", p,
+                                             vf[:, :, k0:k0 + nk])
+            m = m_new
+        out[:, :, :, q0:q0 + nq] = acc / torch.where(l == 0.0, 1.0, l)
+    return out.reshape(B, Hq, T, Dh).to(q.dtype)
+
+
+#: attention strategy thresholds (elements of the dense logits tensor)
+_DENSE_LOGITS_LIMIT = 1 << 27  # ~134M f32 logits = 512 MB
+
+
+def attention_fwd(
+    cfg: ArchConfig,
+    blk: Block,
+    p: Params,
+    x: torch.Tensor,  # (B, T, d)
+    positions: torch.Tensor,  # (B, T)
+    cache: Optional[Dict] = None,
+    use_kernel: bool = False,
+    mode: str = "train",  # train | prefill | decode
+    max_cache_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Attention block.  In ``decode`` mode the new keys and values are
+    written into ``cache`` in place (the port updates the shared serving
+    cache in place, where the reference returns a new one), and ``cache``
+    itself is returned."""
+    B, T, d = x.shape
+    q = _ein("btd,dhk->bhtk", x, p["wq"])
+    k = _ein("btd,dhk->bhtk", x, p["wk"])
+    v = _ein("btd,dhk->bhtk", x, p["wv"])
+    if cfg.qk_norm:
+        q = _rms_headwise(q, p["q_scale"])
+        k = _rms_headwise(k, p["k_scale"])
+    if blk.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if mode == "decode":
+        # per-row write positions: each batch row (serving slot) may sit at
+        # a different absolute position — required for continuous batching.
+        if cache is None:
+            raise ValueError("attention_fwd: decode needs a cache")
+        Hkv = k.shape[1]
+        b_idx = torch.arange(B, device=x.device)[:, None, None]
+        h_idx = torch.arange(Hkv, device=x.device)[None, :, None]
+        pos_idx = positions[:, None, :].long()  # (B, 1, T)
+        if "k_scale" in cache:
+            # int8 KV cache (§Perf): halves the per-token cache sweep.
+            kq, ks = _quant_kv(k)
+            vq, vs = _quant_kv(v)
+            cache["k"][b_idx, h_idx, pos_idx] = kq
+            cache["v"][b_idx, h_idx, pos_idx] = vq
+            cache["k_scale"][b_idx, h_idx, pos_idx] = ks
+            cache["v_scale"][b_idx, h_idx, pos_idx] = vs
+            k = _dequant_kv(cache["k"], cache["k_scale"], x.dtype)
+            v = _dequant_kv(cache["v"], cache["v_scale"], x.dtype)
+        else:
+            cache["k"][b_idx, h_idx, pos_idx] = k.to(cache["k"].dtype)
+            cache["v"][b_idx, h_idx, pos_idx] = v.to(cache["v"].dtype)
+            k, v = cache["k"], cache["v"]
+        new_cache = cache
+    elif mode == "prefill":
+        pad = (max_cache_len or T) - T
+        kc = F.pad(k, (0, 0, 0, pad)) if pad else k
+        vc = F.pad(v, (0, 0, 0, pad)) if pad else v
+        new_cache = {"k": kc, "v": vc}
+
+    S = k.shape[2]
+    dense_cost = B * cfg.n_heads * T * S
+    if mode == "decode":
+        # decode path: T is tiny; dense attention over the cache, masked by
+        # each row's absolute positions.
+        out = _decode_attention(q, k, v, positions, blk.window)
+    elif use_kernel:
+        out = kops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=True, window=blk.window, q_offset=0)
+    elif dense_cost <= _DENSE_LOGITS_LIMIT:
+        out = kref.attention_ref(q, k, v, causal=True, window=blk.window)
+    else:
+        out = chunked_attention(q, k, v, True, blk.window, 0)
+    y = _ein("bhtk,hkd->btd", out, p["wo"])
+    return y, new_cache
+
+
+def _quant_kv(x: torch.Tensor):
+    """Per-(row, head, position) int8 quantization over the head dim."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(scale, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
+    return (q.float() * scale).to(dtype)
+
+
+def _decode_attention(q, k, v, positions, window):
+    """Dense attention against a (zero-padded) cache, in float32;
+    ``positions`` (B, T) are the absolute positions of the queries (per
+    serving slot)."""
+    B, Hq, Tq, Dh = q.shape
+    _, Hkv, S, _ = k.shape
+    group = Hq // Hkv
+    scale = Dh ** -0.5
+    qg = q.reshape(B, Hkv, group, Tq, Dh).float()
+    s = torch.einsum("bkgtd,bksd->bkgts", qg, k.float()) * scale
+    q_pos = positions[:, :, None]  # (B, T, 1)
+    k_pos = torch.arange(S, device=q.device)[None, None, :]
+    mask = k_pos <= q_pos  # (B, T, S)
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgts,bksd->bkgtd", p, v.float())
+    return out.reshape(B, Hq, Tq, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg: ArchConfig, gen: torch.Generator, stack: Stack = (),
+             dtype: torch.dtype = torch.float32,
+             d_ff: Optional[int] = None) -> Params:
+    d, f, s = cfg.d_model, d_ff or cfg.d_ff, tuple(stack)
+    return {
+        "w_gate": _dense_init(gen, s + (d, f), d, dtype),
+        "w_up": _dense_init(gen, s + (d, f), d, dtype),
+        "w_down": _dense_init(gen, s + (f, d), f, dtype),
+    }
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh form; torch's default is exact erf
+    return F.gelu(x, approximate="tanh")
+
+
+def _act(cfg: ArchConfig, x):
+    return F.silu(x) if cfg.act == "silu" else _gelu(x)
+
+
+def mlp_fwd(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = _ein("btd,df->btf", x, p["w_gate"])
+    u = _ein("btd,df->btf", x, p["w_up"])
+    return _ein("btf,fd->btd", _act(cfg, g) * u, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU block (RecurrentGemma recurrent block)
+# ---------------------------------------------------------------------------
+
+def init_rglru(cfg: ArchConfig, gen: torch.Generator, stack: Stack = (),
+               dtype: torch.dtype = torch.float32) -> Params:
+    d, w, s = cfg.d_model, cfg.rglru_width, tuple(stack)
+    return {
+        "in_x": _dense_init(gen, s + (d, w), d, dtype),
+        "in_gate": _dense_init(gen, s + (d, w), d, dtype),
+        "conv": _dense_init(gen, s + (4, w), 4, dtype),
+        "a_gate_w": _dense_init(gen, s + (w,), 1, dtype),  # diagonal gates
+        "a_gate_b": torch.full(s + (w,), 2.0, device=gen.device,
+                               dtype=dtype),  # init a ≈ sigmoid(2) ≈ .88
+        "x_gate_w": _dense_init(gen, s + (w,), 1, dtype),
+        "out_proj": _dense_init(gen, s + (w, d), w, dtype),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 prev: Optional[torch.Tensor]):
+    """Depthwise causal conv along time.  x: (B, T, C); w: (K, C);
+    prev: (B, K-1, C) carried context (decode) or None (zeros).  A float32
+    ``prev`` promotes the output to float32, as in the reference."""
+    B, T, C = x.shape
+    K = w.shape[0]
+    if prev is None:
+        prev = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([prev, x], dim=1)  # (B, T+K-1, C)
+    out = torch.zeros((B, T, C), dtype=x.dtype, device=x.device)
+    for i in range(K):  # K is tiny (4): unrolled taps, no conv primitive
+        out = out + xp[:, i:i + T] * w[i]
+    new_prev = xp[:, -(K - 1):] if K > 1 else prev
+    return out, new_prev
+
+
+def rglru_fwd(
+    cfg: ArchConfig,
+    p: Params,
+    x: torch.Tensor,  # (B, T, d)
+    state: Optional[Dict] = None,
+    use_kernel: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    xb = _ein("btd,dw->btw", x, p["in_x"])
+    gb = _gelu(_ein("btd,dw->btw", x, p["in_gate"]))
+    conv_prev = state["conv"] if state is not None else None
+    xb, conv_new = _causal_conv(xb, p["conv"], conv_prev)
+    # diagonal recurrence and input gates
+    a = torch.sigmoid(xb * p["a_gate_w"] + p["a_gate_b"])
+    gate_x = torch.sigmoid(xb * p["x_gate_w"])
+    h0 = state["h"] if state is not None else None
+    h, hT = kops.gated_linear_recurrence(
+        (xb * gate_x).contiguous(), a.contiguous(), h0, use_kernel=use_kernel
+    )
+    out = _ein("btw,wd->btd", h * gb, p["out_proj"])
+    new_state = {"h": hT, "conv": conv_new} if state is not None else None
+    return out, new_state

@@ -11,10 +11,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ref import segment_sum_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref, rglru_scan_ref,  # noqa: E402
+                                     segment_sum_ref)
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_sum  # noqa: E402
 from repro_torch.mapreduce.apps import word_count  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serve.engine import Request, ServeConfig, ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -24,6 +30,12 @@ pytestmark = pytest.mark.cuda
 #: relative).
 TOL = {"float32": dict(atol=1e-4, rtol=0.0),
        "bfloat16": dict(atol=2e-2, rtol=2 ** -7)}
+
+
+#: the reference's kernel tolerances (tests/test_kernels.py:19-20): the
+#: kernels sum in another order than the plain versions, in float32.
+KTOL = {"float32": dict(atol=2e-5, rtol=1e-2),
+        "bfloat16": dict(atol=2e-2, rtol=1e-2)}
 
 
 @pytest.fixture
@@ -98,3 +110,157 @@ def test_word_count_reduce_runs_the_kernel(card):
                                    1, use_kernel=False)
     assert float(plain[0, 0]) == 4.0
     assert segment_sum.launches == before + 1
+
+
+# (B, Hq, Hkv, T, S, Dh, causal, window, q_offset): the reference kernel
+# tests' table, then RecurrentGemma's shapes (MQA, Dh 256, window) with a
+# ragged last tile, and a prompt shorter than one tile
+ATTN_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None, 0),
+    (1, 8, 8, 100, 100, 32, True, None, 0),
+    (1, 4, 1, 64, 256, 64, True, None, 192),
+    (2, 4, 2, 128, 128, 64, True, 48, 0),
+    (1, 2, 2, 96, 200, 128, False, None, 0),
+    (1, 16, 4, 256, 256, 64, True, 128, 0),
+    (1, 16, 1, 300, 300, 256, True, 64, 0),
+    (1, 16, 1, 17, 17, 256, True, 2048, 0),
+    (2, 4, 1, 33, 33, 16, True, 32, 0),
+    (1, 4, 1, 8, 40, 80, True, 16, 32),
+]
+
+
+def _normal(shape, seed, device, dtype):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device, getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,Dh,causal,window,qoff", ATTN_CASES)
+def test_flash_attention_matches_plain_version(card, dtype, B, Hq, Hkv, T, S,
+                                               Dh, causal, window, qoff):
+    q = _normal((B, Hq, T, Dh), 0, card, dtype)
+    k = _normal((B, Hkv, S, Dh), 1, card, dtype)
+    v = _normal((B, Hkv, S, Dh), 2, card, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, q_offset=qoff)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window, q_offset=qoff)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **KTOL[dtype])
+
+
+def test_flash_attention_fully_masked_rows_give_zero(card):
+    """Queries whose window lies wholly past the keys see nothing: 0."""
+    q = _normal((1, 2, 8, 32), 0, card, "float32")
+    k = _normal((1, 1, 4, 32), 1, card, "float32")
+    out = flash_attention(q, k, k, causal=True, window=2, q_offset=10)
+    torch.cuda.synchronize()
+    assert bool(torch.all(out == 0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,D,with_h0", [
+    (2, 64, 32, False), (1, 100, 64, True), (1, 50, 16, False),
+    (1, 3000, 4096, True), (4, 1, 4096, True), (3, 7, 33, True),
+])
+def test_rglru_scan_matches_plain_version(card, dtype, B, T, D, with_h0):
+    x = _normal((B, T, D), 0, card, dtype)
+    a = torch.sigmoid(_normal((B, T, D), 1, card, dtype))
+    h0 = _normal((B, D), 2, card, "float32") if with_h0 else None
+    before = rglru_scan.launches
+    y, h_t = rglru_scan(x, a, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    y_ref, h_ref = rglru_scan_ref(x, a, h0)
+    assert y.dtype == x.dtype and h_t.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), **KTOL[dtype])
+    torch.testing.assert_close(h_t, h_ref, **KTOL[dtype])
+
+
+def test_rglru_scan_carries_state(card):
+    """Two halves with the carried state == the whole sequence."""
+    x = _normal((1, 48, 32), 0, card, "float32")
+    a = torch.sigmoid(_normal((1, 48, 32), 1, card, "float32"))
+    y_full, h_full = rglru_scan(x, a)
+    y1, s = rglru_scan(x[:, :24].contiguous(), a[:, :24].contiguous())
+    y2, s2 = rglru_scan(x[:, 24:].contiguous(), a[:, 24:].contiguous(), h0=s)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, atol=1e-5, rtol=0)
+    torch.testing.assert_close(s2, h_full, atol=1e-5, rtol=0)
+
+
+def test_attention_and_scan_wrappers_raise(card):
+    q = torch.zeros(1, 4, 8, 16, device=card)
+    k = torch.zeros(1, 2, 8, 16, device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(TypeError, match="k dtype"):
+        flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3), k.transpose(2, 3), k.transpose(2, 3))
+    with pytest.raises(ValueError, match="multiple of"):
+        flash_attention(q, torch.zeros(1, 3, 8, 16, device=card),
+                        torch.zeros(1, 3, 8, 16, device=card))
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 1, 4, 512, device=card)
+        flash_attention(big, big, big)
+    x = torch.zeros(2, 5, 8, device=card)
+    with pytest.raises(TypeError, match="h0 dtype"):
+        rglru_scan(x, x, torch.zeros(2, 8, device=card, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="h0 must be"):
+        rglru_scan(x, x, torch.zeros(2, 5, device=card))
+    with pytest.raises(TypeError, match="a dtype"):
+        rglru_scan(x, x.bfloat16())
+    with pytest.raises(ValueError, match="a on cpu"):
+        rglru_scan(x, x.cpu())
+
+
+def test_recurrentgemma_path_runs_the_kernels(card):
+    """The reduced RecurrentGemma in float32: prefill and three decode steps
+    launch the kernels (2 attention and 6 RG-LRU layers) and agree with the
+    plain versions to atol/rtol 1e-4 (float32 sums in another order, over 8
+    layers)."""
+    cfg = ARCHS["recurrentgemma-9b"].reduced()
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = M.init(cfg, gen, device=card)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 40))).to(card)
+    runs = {}
+    for use_kernels in (True, False):
+        before = (flash_attention.launches, rglru_scan.launches)
+        logits, cache, _ = M.prefill(cfg, params, {"tokens": toks},
+                                     max_cache_len=64, use_kernels=use_kernels)
+        outs = [logits]
+        for i in range(3):
+            batch = {"tokens": toks[:, i:i + 1],
+                     "positions": torch.full((2, 1), 40 + i, device=card)}
+            outs.append(M.decode_step(cfg, params, batch, cache,
+                                      use_kernels=use_kernels)[0])
+        torch.cuda.synchronize()
+        launched = (flash_attention.launches - before[0],
+                    rglru_scan.launches - before[1])
+        assert launched == ((2, 6 * 4) if use_kernels else (0, 0))
+        runs[use_kernels] = outs
+    for got, want in zip(runs[True], runs[False]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_serve_engine_on_the_card_matches_the_plain_versions(card):
+    cfg = ARCHS["recurrentgemma-9b"].reduced()
+    gen = torch.Generator(device=card).manual_seed(1)
+    params = M.init(cfg, gen, device=card)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (5, 40, 17)]
+    outputs = {}
+    for use_kernels in (True, False):
+        eng = ServeEngine(cfg, params, ServeConfig(slots=2, max_len=64,
+                                                   use_kernels=use_kernels))
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        outputs[use_kernels] = [r.output for r in reqs]
+    assert outputs[True] == outputs[False]

@@ -32,6 +32,7 @@ COPIES = [
     "core/fluid.py",
     "mapreduce/partition.py",
     "mapreduce/engine.py",
+    "models/config.py",
 ]
 
 BLOCKED = ("jax", "jaxlib", "repro")
@@ -48,6 +49,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     modules = _port_modules()
     assert "repro_torch.core.optimize" in modules
     assert "repro_torch.kernels.segment_reduce" in modules
+    assert "repro_torch.serve.engine" in modules
+    assert "repro_torch.launch.serve" in modules
     script = f"""
 import importlib, importlib.abc, sys
 
@@ -95,6 +98,15 @@ def test_no_jax_or_repro_import(path):
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_is_byte_identical(rel):
     assert (PORT / rel).read_bytes() == (REF / rel).read_bytes(), rel
+
+
+@pytest.mark.parametrize(
+    "rel", sorted(str(p.relative_to(REF)) for p in (REF / "configs").glob("*.py")
+                  if p.name != "__init__.py"))
+def test_architecture_file_differs_only_in_its_import(rel):
+    want = (REF / rel).read_text().replace(
+        "from repro.models.config import", "from repro_torch.models.config import")
+    assert (PORT / rel).read_text() == want, rel
 
 
 @pytest.fixture

@@ -1,7 +1,8 @@
-"""The port's ``segment_sum``: its plain PyTorch version against the
-reference's Pallas kernel (interpret mode on the CPU) and jnp oracle, and
-the CPU dispatch of the wrapper and the ops layer.  The Hopper kernel
-itself is held against the plain version in ``test_torch_cuda.py``."""
+"""The port's kernels' plain PyTorch versions (``segment_sum``,
+``flash_attention``, ``rglru_scan``) against the reference's Pallas
+kernels (interpret mode on the CPU) and jnp oracles, and the CPU dispatch
+of the wrappers and the ops layer.  The Hopper kernels themselves are held
+against the plain versions in ``test_torch_cuda.py``."""
 import numpy as np
 import pytest
 
@@ -10,9 +11,14 @@ pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as rref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as pallas_attention  # noqa: E402
+from repro.kernels.rglru_scan import rglru_scan as pallas_rglru  # noqa: E402
 from repro.kernels.segment_reduce import segment_sum as pallas_segment_sum  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ref import segment_sum_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref, rglru_scan_ref,  # noqa: E402
+                                     segment_sum_ref)
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_sum  # noqa: E402
 
 #: float32 sums of a few dozen N(0,1) terms taken in another order (the
@@ -82,3 +88,101 @@ def test_word_count_sums_stay_exact():
     out = ops.sorted_segment_sum(counts, ids, 2)
     assert out[:, 0].tolist() == [2.0 ** 24 - 1, 6.0]
 
+
+
+#: the reference's kernel tolerances (tests/test_kernels.py:19-20)
+KTOL = {"float32": dict(atol=2e-5, rtol=1e-2),
+        "bfloat16": dict(atol=2e-2, rtol=1e-2)}
+
+# (B, Hq, Hkv, T, S, Dh, causal, window, q_offset): rows of the reference
+# kernel tests' table at sizes interpret mode runs quickly — GQA, a sliding
+# window over a T that is no multiple of the 32-row block, a decode offset,
+# non-causal
+ATTN_CASES = [
+    (1, 4, 2, 64, 64, 32, True, None, 0),
+    (1, 4, 1, 40, 40, 16, True, 16, 0),
+    (1, 2, 1, 16, 64, 32, True, None, 48),
+    (1, 2, 2, 24, 40, 16, False, None, 0),
+]
+
+
+def _normal(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,Dh,causal,window,qoff", ATTN_CASES)
+def test_attention_plain_version_matches_reference(dtype, B, Hq, Hkv, T, S, Dh,
+                                                   causal, window, qoff):
+    q = _normal((B, Hq, T, Dh), 0)
+    k = _normal((B, Hkv, S, Dh), 1)
+    v = _normal((B, Hkv, S, Dh), 2)
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    pallas = pallas_attention(jq, jk, jv, causal=causal, window=window,
+                              q_offset=qoff, block_q=32, block_k=32)
+    oracle = rref.attention_ref(jq, jk, jv, causal=causal, window=window,
+                                q_offset=qoff)
+    td = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    got = attention_ref(tq, tk, tv, causal=causal, window=window, q_offset=qoff)
+    assert got.dtype == td and tuple(got.shape) == (B, Hq, T, Dh)
+    got = got.float().numpy()
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                                   **KTOL[dtype])
+
+
+def test_attention_fully_masked_rows_are_zero():
+    q = torch.from_numpy(_normal((1, 2, 4, 8), 0))
+    k = torch.from_numpy(_normal((1, 1, 3, 8), 1))
+    out = attention_ref(q, k, k, causal=True, window=2, q_offset=10)
+    assert bool(torch.all(out == 0)) and not bool(torch.isnan(out).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,D,chunk,with_h0", [
+    (2, 64, 32, 16, False),
+    (1, 50, 16, 16, True),  # T no multiple of the chunk
+    (3, 1, 32, 16, True),  # one decode step
+])
+def test_rglru_plain_version_matches_reference(dtype, B, T, D, chunk, with_h0):
+    x = _normal((B, T, D), 3)
+    a = 1.0 / (1.0 + np.exp(-_normal((B, T, D), 4)))
+    h0 = _normal((B, D), 5) if with_h0 else None
+    jd = getattr(jnp, dtype)
+    jx, ja = jnp.asarray(x, jd), jnp.asarray(a, jd)
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    pallas = pallas_rglru(jx, ja, jh0, chunk=chunk, block_d=D)
+    oracle = rref.rglru_scan_ref(jx, ja, jh0)
+    td = getattr(torch, dtype)
+    y, h_t = rglru_scan_ref(torch.from_numpy(x).to(td),
+                            torch.from_numpy(a).to(td),
+                            None if h0 is None else torch.from_numpy(h0))
+    assert y.dtype == td and h_t.dtype == torch.float32
+    for want_y, want_h in (pallas, oracle):
+        np.testing.assert_allclose(y.float().numpy(),
+                                   np.asarray(want_y.astype(jnp.float32)),
+                                   **KTOL[dtype])
+        np.testing.assert_allclose(h_t.numpy(), np.asarray(want_h),
+                                   **KTOL[dtype])
+
+
+def test_lm_kernels_on_cpu_take_the_plain_versions():
+    q = torch.from_numpy(_normal((1, 4, 9, 16), 0))
+    k = torch.from_numpy(_normal((1, 2, 9, 16), 1))
+    x = torch.from_numpy(_normal((2, 5, 8), 2))
+    a = torch.sigmoid(torch.from_numpy(_normal((2, 5, 8), 3)))
+    h0 = torch.from_numpy(_normal((2, 8), 4))
+    before = (flash_attention.launches, rglru_scan.launches)
+    want = attention_ref(q, k, k, window=4)
+    for out in (flash_attention(q, k, k, window=4),
+                ops.attention(q, k, k, window=4),
+                ops.attention(q, k, k, window=4, use_kernel=False)):
+        torch.testing.assert_close(out, want, atol=0.0, rtol=0.0)
+    wy, wh = rglru_scan_ref(x, a, h0)
+    for y, h in (rglru_scan(x, a, h0), ops.gated_linear_recurrence(x, a, h0),
+                 ops.gated_linear_recurrence(x, a, h0, use_kernel=False)):
+        torch.testing.assert_close(y, wy, atol=0.0, rtol=0.0)
+        torch.testing.assert_close(h, wh, atol=0.0, rtol=0.0)
+    assert (flash_attention.launches, rglru_scan.launches) == before
