@@ -47,6 +47,18 @@ Phases:
    tail — in float32, run with the kernels and with the plain versions:
    the logits of a 3000-token prefill and of three decode steps must
    agree.
+7. Serving Falcon-Mamba-7B, after RecurrentGemma's weights are freed: 64
+   Mamba layers, d_model 4096, d_inner 8192, d_state 16, vocab 65024, at
+   full width and depth in bfloat16 (14.54 GB) through the same engine: 8
+   requests with prompts of 1, 17, 2048, 3000 tokens and 4 random lengths,
+   32 new tokens each.  The same checks as phase 5, with ``mamba_scan``
+   launched exactly 64 times per admission and per decode step, and peak
+   device memory under 80 GB.
+8. ``mamba_scan`` against its plain version at the served shapes (prefills
+   of 17, 2048 and 3000 tokens in bfloat16 and float32, with and without
+   ``h0``; the float32 decode step against bfloat16 A and D), with times;
+   then a full-width cut to depth 4 in float32, kernels against plain
+   versions, as in phase 6.
 
 After the phases, one ``{"kernels": [...]}`` line lists every kernel.
 
@@ -76,15 +88,17 @@ BF16_OPS_PER_S = 989e12
 #: kernels sum in another order than their plain versions
 KERNEL_TOL = {"torch.float32": (2e-5, 1e-2), "torch.bfloat16": (2e-2, 1e-2)}
 #: float32 model logits, kernels against plain versions: the same float32
-#: sums in another order, carried through 5 full-width layers and the
-#: 4096-wide unembedding
+#: sums in another order, carried through 5 (RecurrentGemma) or 4
+#: (Falcon-Mamba) full-width layers and the 4096-wide unembedding
 MODEL_TOL = (1e-3, 1e-3)
 
 #: main-path scale: the paper's 8-DC testbed and a 20M-word corpus
 N_DOCS, WORDS_PER_DOC, VOCAB = 20_000, 1_000, 1 << 20
 N_RESTARTS, STEPS = 24, 500
 BATCH = 64
-KERNELS = ("segment_sum", "flash_attention", "rglru_scan")
+KERNELS = ("segment_sum", "flash_attention", "rglru_scan", "mamba_scan")
+#: the kernels of the LM serving paths, and what each is counted on
+LM_KERNELS = ("flash_attention", "rglru_scan", "mamba_scan")
 
 #: serving scale: prompts on both sides of the 2048 window, a ragged
 #: 64-row tile (17) and the longest served prompt (3000)
@@ -92,6 +106,18 @@ SERVE_ARCH = "recurrentgemma-9b"
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 4096, 32
 SERVE_PROMPTS = (17, 2047, 2049, 3000)
 SERVE_RANDOM_PROMPTS = 4
+#: Falcon-Mamba: a one-token prompt, a ragged one and the longest served
+MAMBA_ARCH = "falcon-mamba-7b"
+MAMBA_PROMPTS = (1, 17, 2048, 3000)
+#: one card's device memory
+CARD_BYTES = 80e9
+#: the reference's bar for the Mamba kernel (tests/test_kernels.py:81-87):
+#: atol 5 × the kernel tolerance, rtol 3e-2
+MAMBA_TOL = {"torch.float32": (5 * 2e-5, 3e-2), "torch.bfloat16": (5 * 2e-2, 3e-2)}
+#: exponentials per second on the special function units: 16 a clock per
+#: SM at compute capability 9.0 (CUDA C++ programming guide, arithmetic
+#: instruction throughput), 132 SMs at the H100 SXM's 1.98 GHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -521,27 +547,46 @@ def serve_prompts(vocab, seed=0, fixed=SERVE_PROMPTS, n_random=SERVE_RANDOM_PROM
     return [rng.integers(0, vocab, size=n).astype(np.int32) for n in lengths]
 
 
-def phase_serving(device, cfg=None, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
-                  new_tokens=SERVE_NEW, prompts=None):
-    """RecurrentGemma through ServeEngine in bfloat16; returns the kernels'
-    launch counts of the run."""
+def _lm_kernels():
+    """The LM kernels' wrappers by name, whose ``.launches`` count."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.rglru_scan import rglru_scan
+
+    return {"flash_attention": flash_attention, "rglru_scan": rglru_scan,
+            "mamba_scan": mamba_scan}
+
+
+def expected_launches(cfg):
+    """Launches of each LM kernel per admission (a prefill) and per decode
+    step: attention prefills only, the recurrences every call."""
+    blocks = list(cfg.pattern) * cfg.n_groups + list(cfg.tail)
+    n = {m: sum(b.mixer == m for b in blocks) for m in ("attn", "rglru", "ssm")}
+    return {"flash_attention": (n["attn"], 0),
+            "rglru_scan": (n["rglru"], n["rglru"]),
+            "mamba_scan": (n["ssm"], n["ssm"])}
+
+
+def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
+                  max_len=SERVE_MAX_LEN, new_tokens=SERVE_NEW, prompts=None,
+                  fixed=SERVE_PROMPTS, phase="5"):
+    """``arch`` through ServeEngine in bfloat16, on ``prompts`` (default:
+    the ``fixed`` lengths and random ones); returns the kernels' launch
+    counts of the run."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.segment_reduce import segment_sum
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
 
-    print("== phase 5: serving (ServeEngine, bfloat16)", flush=True)
-    cfg = cfg or get_config(SERVE_ARCH)
-    n_attn = sum(b.mixer == "attn" for b in cfg.pattern) * cfg.n_groups + sum(
-        b.mixer == "attn" for b in cfg.tail)
-    n_rglru = sum(b.mixer == "rglru" for b in cfg.pattern) * cfg.n_groups + sum(
-        b.mixer == "rglru" for b in cfg.tail)
+    cfg = cfg or get_config(arch)
+    print(f"== phase {phase}: serving {cfg.name} (ServeEngine, bfloat16)",
+          flush=True)
+    kernels = _lm_kernels()
+    expect = expected_launches(cfg)
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab}, {cfg.n_params() / 1e9:.3f} B parameters; "
-          f"{n_attn} attention and {n_rglru} RG-LRU layers")
+          f"{cfg.vocab}, {cfg.n_params() / 1e9:.3f} B parameters; launches "
+          f"expected per admission and per decode step {expect}")
     if device.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -552,10 +597,19 @@ def phase_serving(device, cfg=None, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
     _sync(device)
     n_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
     print(f"init: {n_bytes / 1e9:.3f} GB of weights in {time.perf_counter() - t:.3f} s")
+    init_peak = 0
+    if device.type == "cuda":
+        # init draws each leaf in float32 before the cast: its own peak
+        init_peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    print(f"init peak device memory {init_peak / 1e9!r} GB")
+    check(init_peak < CARD_BYTES, f"init peak device memory "
+          f"{init_peak / 1e9} GB over {CARD_BYTES / 1e9} GB")
     eng = ServeEngine(cfg, params, ServeConfig(
         slots=slots, max_len=max_len, compute_dtype=torch.bfloat16,
         use_kernels=True, seed=0), device=device)
-    prompts = prompts if prompts is not None else serve_prompts(cfg.vocab)
+    prompts = prompts if prompts is not None else serve_prompts(cfg.vocab,
+                                                                fixed=fixed)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
     print(f"requests: {len(reqs)}, prompt lengths {[len(p) for p in prompts]}, "
@@ -567,7 +621,7 @@ def phase_serving(device, cfg=None, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
     def timed(kind):
         def run(*args, **kwargs):
             _sync(device)
-            before = (flash_attention.launches, rglru_scan.launches)
+            before = {k: w.launches for k, w in kernels.items()}
             t0 = time.perf_counter()
             logits, cache, aux = real[kind](*args, **kwargs)
             finite = bool(torch.isfinite(logits).all())
@@ -575,8 +629,8 @@ def phase_serving(device, cfg=None, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
             records[kind].append({
                 "s": time.perf_counter() - t0, "finite": finite,
                 "T": int(logits.shape[1]),
-                "flash": flash_attention.launches - before[0],
-                "rglru": rglru_scan.launches - before[1]})
+                "launched": {k: w.launches - before[k]
+                             for k, w in kernels.items()}})
             return logits, cache, aux
         return run
 
@@ -584,14 +638,14 @@ def phase_serving(device, cfg=None, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
         eng.submit(r)
     M.prefill, M.decode_step = timed("prefill"), timed("decode")
     try:
-        flash_attention.launches = rglru_scan.launches = segment_sum.launches = 0
+        for w in (*kernels.values(), segment_sum):
+            w.launches = 0
         t = time.perf_counter()
         done = eng.run()
         _sync(device)
         wall = time.perf_counter() - t
-        launches = {"flash_attention": flash_attention.launches,
-                    "rglru_scan": rglru_scan.launches,
-                    "segment_sum": segment_sum.launches}
+        launches = {k: w.launches for k, w in kernels.items()}
+        launches["segment_sum"] = segment_sum.launches
     finally:
         M.prefill, M.decode_step = real["prefill"], real["decode"]
 
@@ -604,20 +658,19 @@ def phase_serving(device, cfg=None, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
     pre, dec = records["prefill"], records["decode"]
     check(all(x["finite"] for x in pre + dec), "a logit is not finite")
     check(len(pre) == len(reqs), f"{len(pre)} prefills for {len(reqs)} requests")
-    for x in pre:
-        check(x["flash"] == n_attn and x["rglru"] == n_rglru,
-              f"prefill of {x['T']} tokens launched flash_attention "
-              f"{x['flash']} and rglru_scan {x['rglru']} times, wanted "
-              f"{n_attn} and {n_rglru}")
-    for x in dec:
-        check(x["flash"] == 0 and x["rglru"] == n_rglru,
-              f"decode step launched flash_attention {x['flash']} and "
-              f"rglru_scan {x['rglru']} times, wanted 0 and {n_rglru}")
-    check(launches["flash_attention"] == n_attn * len(pre)
-          and launches["rglru_scan"] == n_rglru * (len(pre) + len(dec)),
-          f"launch counts {launches} do not add up")
-    check(launches["flash_attention"] > 0 and launches["rglru_scan"] > 0,
-          "the serving path launched no kernel")
+    for kind, calls, col in (("prefill", pre, 0), ("decode step", dec, 1)):
+        want = {k: v[col] for k, v in expect.items()}
+        for x in calls:
+            check(x["launched"] == want,
+                  f"{kind} of {x['T']} tokens launched {x['launched']}, "
+                  f"wanted {want}")
+    for k, (per_admission, per_step) in expect.items():
+        total = per_admission * len(pre) + per_step * len(dec)
+        check(launches[k] == total,
+              f"{k}: {launches[k]} launches in the run, wanted {total}")
+        if per_admission:
+            check(launches[k] > 0, f"the serving path never launched {k}")
+    check(launches["segment_sum"] == 0, "serving launched segment_sum")
     decode_s = sum(x["s"] for x in dec)
     decode_tokens = sum(len(r.output) - 1 for r in reqs)
     for x in pre:
@@ -627,7 +680,9 @@ def phase_serving(device, cfg=None, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
           f"ms/step (first step {dec[0]['s'] * 1e3!r} ms)")
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     print(f"serving wall {wall!r} s; launches {launches}; peak device memory "
-          f"{peak / 1e9!r} GB; card {torch.cuda.get_device_name(0) if device.type == 'cuda' else device}")
+          f"while serving {peak / 1e9!r} GB; card {torch.cuda.get_device_name(0) if device.type == 'cuda' else device}")
+    check(peak < CARD_BYTES, f"peak device memory {peak / 1e9} GB over "
+          f"{CARD_BYTES / 1e9} GB")
     if device.type == "cuda":
         longest = max(prompts, key=len)
         batch = {"tokens": torch.zeros((slots, 1), dtype=torch.long, device=device),
@@ -811,21 +866,131 @@ def phase_lm_kernels(device, launches, lengths=(17, 2049, 3000), hq=16, dh=256,
     return entries
 
 
-def phase_model_kernels_vs_plain(device, cfg=None, prompt_len=3000,
-                                 max_len=SERVE_MAX_LEN, steps=3):
-    """One full-width (rg, rg, attn) group plus the two-block tail (depth
-    5), float32: prefill and decode logits with the kernels against the
-    plain versions, on the same tokens."""
+def mamba_bound_ms(b, t_len, d_inner, d_state, act_elem, param_elem,
+                   has_h0):
+    """Least time: x, Δ, B and C read, y written, A and D read, h0 read and
+    h_T written once (float32), against 7 float32 operations per state
+    update (Δ·A, exp, Δ·x·B, the FMA into h, h·C and its sum), over 67
+    TFLOP/s.  Also the time of the exponentials alone on the special
+    function units, a term the bound does not count.  Returns (ms,
+    "bytes" | "operations", exp_sfu_ms)."""
+    updates = b * t_len * d_inner * d_state
+    n_bytes = ((3 * b * t_len * d_inner + 2 * b * t_len * d_state) * act_elem
+               + (d_inner * d_state + d_inner) * param_elem
+               + (2 if has_h0 else 1) * b * d_inner * d_state * 4)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 7 * updates / F32_OPS_PER_S * 1e3
+    sfu_ms = updates / SFU_EXP_PER_S * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", sfu_ms
+    return ops_ms, "operations", sfu_ms
+
+
+def phase_mamba_kernel(device, launches, lengths=(17, 2048, 3000),
+                       d_inner=8192, d_state=16, slots=SERVE_SLOTS,
+                       timed_len=None):
+    """mamba_scan against its plain version at the served shapes, and its
+    times; returns its kernels-line entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.ref import mamba_scan_ref
+
+    print("== phase 8a: mamba_scan against its plain version", flush=True)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    timed_len = timed_len or max(lengths)
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(device, dtype)
+
+    # A and D as the served model holds them: bfloat16 parameters, A the
+    # initial -exp(A_log) = -(1..d_state)
+    A = -torch.arange(1, d_state + 1, dtype=torch.float32).expand(
+        d_inner, d_state).to(device, torch.bfloat16)
+    D = normal(d_inner, dtype=torch.bfloat16)
+
+    def inputs(b, t_len, dtype, with_h0):
+        x = normal(b, t_len, d_inner, dtype=dtype)
+        delta = F.softplus(normal(b, t_len, d_inner)).to(dtype)
+        Bc = normal(b, t_len, d_state, dtype=dtype)
+        Cc = normal(b, t_len, d_state, dtype=dtype)
+        h0 = normal(b, d_inner, d_state) if with_h0 else None
+        return x, delta, A, Bc, Cc, D, h0
+
+    cases = [(1, t_len, dtype, with_h0) for dtype in (torch.bfloat16, torch.float32)
+             for t_len in lengths for with_h0 in (False, True)]
+    cases.append((slots, 1, torch.float32, True))  # the decode step
+    err_max, timed = 0.0, {}
+    for b, t_len, dtype, with_h0 in cases:
+        args = inputs(b, t_len, dtype, with_h0)
+        atol, rtol = MAMBA_TOL[str(dtype)]
+        y, h_t = mamba_scan(*args)
+        _sync(device)
+        y_ref, h_ref = mamba_scan_ref(*args)
+        ok_y, err_y = _close(y, y_ref, atol, rtol)
+        ok_h, err_h = _close(h_t, h_ref, atol, rtol)
+        check(ok_y and ok_h and y.dtype == dtype and h_t.dtype == torch.float32,
+              f"mamba_scan ({b},{t_len},{d_inner},{d_state}) {dtype} h0 "
+              f"{with_h0}: max |err| y {err_y} h_T {err_h} over atol {atol} "
+              f"rtol {rtol}")
+        err_max = max(err_max, err_y, err_h)
+        print(f"mamba_scan ({b},{t_len},{d_inner},{d_state}) {dtype}, A and D "
+              f"bfloat16, h0 {with_h0}: max |err| y {err_y!r} h_T {err_h!r} "
+              f"(atol {atol}, rtol {rtol})")
+        if with_h0 and (b, t_len, dtype) in ((1, timed_len, torch.bfloat16),
+                                            (slots, 1, torch.float32)):
+            timed["prefill" if t_len > 1 else "decode"] = args
+
+    entry = None
+    for label in ("prefill", "decode"):
+        args = timed[label]
+        x, h0 = args[0], args[-1]
+        b, t_len, _ = x.shape
+        ms = time_ms(lambda: mamba_scan(*args), runs=10, per_run=5)
+        dev_ms = kernel_device_ms(lambda: mamba_scan(*args),
+                                  "mamba_scan_kernel", calls=5)
+        plain = time_ms(lambda: mamba_scan_ref(*args), runs=3, per_run=1,
+                        warmup=1)
+        bound, bound_by, sfu = mamba_bound_ms(b, t_len, d_inner, d_state,
+                                              x.element_size(), 2, True)
+        print(f"timing mamba_scan {label} {tuple(x.shape)} d_state {d_state} "
+              f"{x.dtype}: wrapper {ms!r} ms  kernel (device) {dev_ms!r} ms  "
+              f"plain {plain!r} ms  library none (no single PyTorch call "
+              f"computes a selective scan)  bound {bound!r} ms ({bound_by}; "
+              f"exp on the SFUs alone {sfu!r} ms, not counted)")
+        if label == "prefill":
+            entry = {
+                "name": "mamba_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                "replaces": "src/repro/kernels/mamba_scan.py:27",
+                "launches": launches["mamba_scan"], "max_abs_err": err_max,
+                "ms": ms, "kernel_device_ms": dev_ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+                "exp_sfu_ms": sfu,
+                "shape": {"B": b, "T": t_len, "Di": d_inner, "Ds": d_state,
+                          "dtype": str(x.dtype), "A_D_dtype": "torch.bfloat16"},
+            }
+    return entry
+
+
+def phase_model_kernels_vs_plain(device, arch=SERVE_ARCH, depth=None, cfg=None,
+                                 prompt_len=3000, max_len=SERVE_MAX_LEN,
+                                 steps=3, phase="6b"):
+    """A full-width cut of ``arch`` to ``depth`` layers (default: one
+    pattern group plus the tail), float32: prefill and decode logits with
+    the kernels against the plain versions, on the same tokens."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    print("== phase 6b: one full-width group plus the tail, kernels against "
-          "plain versions (float32)", flush=True)
-    base = cfg or get_config(SERVE_ARCH)
-    cfg = dataclasses.replace(base, n_layers=len(base.pattern) + len(base.tail))
+    base = cfg or get_config(arch)
+    depth = depth or len(base.pattern) + len(base.tail)
+    cfg = dataclasses.replace(base, n_layers=depth)
+    print(f"== phase {phase}: {cfg.name} at full width and depth {depth}, "
+          "kernels against plain versions (float32)", flush=True)
+    kernels = _lm_kernels()
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
     params = M.init(cfg, gen, device=device, dtype=torch.float32)
@@ -836,6 +1001,7 @@ def phase_model_kernels_vs_plain(device, cfg=None, prompt_len=3000,
     atol, rtol = MODEL_TOL
     out = {}
     for use_kernels in (True, False):
+        before = sum(w.launches for w in kernels.values())
         logits, cache, _ = M.prefill(cfg, params, {"tokens": tokens},
                                      max_cache_len=max_len,
                                      use_kernels=use_kernels)
@@ -848,6 +1014,9 @@ def phase_model_kernels_vs_plain(device, cfg=None, prompt_len=3000,
             outs.append(M.decode_step(cfg, params, batch, cache,
                                       use_kernels=use_kernels)[0])
         _sync(device)
+        launched = sum(w.launches for w in kernels.values()) - before
+        check((launched > 0) == use_kernels,
+              f"use_kernels={use_kernels}: {launched} kernel launches")
         out[use_kernels] = outs
     for i, (got, want) in enumerate(zip(out[True], out[False])):
         label = "prefill" if i == 0 else f"decode step {i}"
@@ -858,6 +1027,19 @@ def phase_model_kernels_vs_plain(device, cfg=None, prompt_len=3000,
               f"{tuple(got.shape)}: kernels vs plain max |err| {err!r} (atol "
               f"{atol}, rtol {rtol}; max |logit| {float(want.abs().max())!r})")
     del params
+
+
+def free_device_memory(device) -> None:
+    """Return what the finished phases held to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        print(f"device memory allocated after freeing: "
+              f"{torch.cuda.memory_allocated(device) / 1e9!r} GB")
 
 
 def main() -> None:
@@ -881,6 +1063,10 @@ def main() -> None:
     served = phase_serving(device)
     entries += phase_lm_kernels(device, served)
     phase_model_kernels_vs_plain(device)
+    free_device_memory(device)
+    served = phase_serving(device, MAMBA_ARCH, fixed=MAMBA_PROMPTS, phase="7")
+    entries.append(phase_mamba_kernel(device, served))
+    phase_model_kernels_vs_plain(device, MAMBA_ARCH, depth=4, phase="8b")
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {

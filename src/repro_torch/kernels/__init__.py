@@ -4,6 +4,8 @@
   ``csrc/segment_sum.cu`` (word count's reduce).
 * :mod:`repro_torch.kernels.flash_attention` — ``flash_attention``, CUDA
   C++ in ``csrc/flash_attention.cu`` (local-attention prefill).
+* :mod:`repro_torch.kernels.mamba_scan` — ``mamba_scan``, CUDA C++ in
+  ``csrc/mamba_scan.cu`` (the Mamba-1 selective scan, prefill and decode).
 * :mod:`repro_torch.kernels.rglru_scan` — ``rglru_scan``, CUDA C++ in
   ``csrc/rglru_scan.cu`` (the RG-LRU recurrence, prefill and decode).
 * :mod:`repro_torch.kernels.ref` — the plain PyTorch versions.
@@ -13,7 +15,9 @@
 """
 from . import ops, ref
 from .flash_attention import flash_attention
+from .mamba_scan import mamba_scan
 from .rglru_scan import rglru_scan
 from .segment_reduce import segment_sum
 
-__all__ = ["flash_attention", "ops", "ref", "rglru_scan", "segment_sum"]
+__all__ = ["flash_attention", "mamba_scan", "ops", "ref", "rglru_scan",
+           "segment_sum"]

@@ -13,10 +13,12 @@ from typing import Optional
 
 from . import ref
 from .flash_attention import flash_attention
+from .mamba_scan import mamba_scan
 from .rglru_scan import rglru_scan
 from .segment_reduce import segment_sum
 
-__all__ = ["attention", "gated_linear_recurrence", "sorted_segment_sum"]
+__all__ = ["attention", "gated_linear_recurrence", "sorted_segment_sum",
+           "ssm_scan"]
 
 
 def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
@@ -27,6 +29,13 @@ def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
                                q_offset=q_offset)
     return ref.attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
+
+
+def ssm_scan(x, delta, A, Bc, Cc, D, h0=None, use_kernel: bool = True):
+    """Mamba-1 selective scan → (y, h_T)."""
+    if use_kernel:
+        return mamba_scan(x, delta, A, Bc, Cc, D, h0)
+    return ref.mamba_scan_ref(x, delta, A, Bc, Cc, D, h0)
 
 
 def gated_linear_recurrence(x, a, h0=None, use_kernel: bool = True):

@@ -11,7 +11,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["attention_ref", "rglru_scan_ref", "segment_sum_ref"]
+__all__ = ["attention_ref", "mamba_scan_ref", "rglru_scan_ref",
+           "segment_sum_ref"]
 
 
 def attention_ref(
@@ -54,6 +55,39 @@ def attention_ref(
     probs = probs.masked_fill(~mask.any(dim=-1)[:, None], 0.0)
     out = torch.einsum("bhts,bhsd->bhtd", probs, vr)
     return out.to(q.dtype)
+
+
+def mamba_scan_ref(
+    x: torch.Tensor,  # (B, T, Di)
+    delta: torch.Tensor,  # (B, T, Di)
+    A: torch.Tensor,  # (Di, Ds)    (negative-definite diagonal dynamics)
+    Bc: torch.Tensor,  # (B, T, Ds)
+    Cc: torch.Tensor,  # (B, T, Ds)
+    D: torch.Tensor,  # (Di,)
+    h0: Optional[torch.Tensor] = None,  # (B, Di, Ds)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan.
+
+      h_t = exp(Δ_t ⊙ A) ⊙ h_{t-1} + (Δ_t ⊙ x_t) ⊗ B_t
+      y_t = (h_t · C_t) + D ⊙ x_t
+
+    Every input is taken in float32.  Returns ``(y, h_T)``: y (B, T, Di)
+    in x's dtype and h_T (B, Di, Ds) in float32.
+    """
+    Bn, T, Di = x.shape
+    Ds = A.shape[1]
+    xf, df = x.float(), delta.float()
+    Af, Bf, Cf = A.float(), Bc.float(), Cc.float()
+    h = (torch.zeros((Bn, Di, Ds), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = torch.empty((Bn, T, Di), dtype=torch.float32, device=x.device)
+    for t in range(T):
+        decay = torch.exp(df[:, t, :, None] * Af)  # (B, Di, Ds)
+        inject = (df[:, t] * xf[:, t])[:, :, None] * Bf[:, t, None, :]
+        h = decay * h + inject
+        ys[:, t] = torch.einsum("bds,bs->bd", h, Cf[:, t])
+    y = ys + D.float() * xf
+    return y.to(x.dtype), h
 
 
 def rglru_scan_ref(

@@ -1,7 +1,7 @@
 """Model layers on torch: norms, RoPE, attention (GQA / qk-norm / sliding
-window / NoPE, int8 decode cache), SwiGLU & GeGLU MLPs and the RG-LRU
-block — the parts of :mod:`repro.models.layers` that the serving slice
-runs.
+window / NoPE, int8 decode cache), SwiGLU & GeGLU MLPs, the Mamba-1 block
+and the RG-LRU block — the parts of :mod:`repro.models.layers` that the
+serving slices run.
 
 Layers are functions over parameter dicts with the reference's names and
 tensor layouts.  Matrix products follow jax's type promotion: a float32
@@ -376,5 +376,60 @@ def rglru_fwd(
         (xb * gate_x).contiguous(), a.contiguous(), h0, use_kernel=use_kernel
     )
     out = _ein("btw,wd->btd", h * gb, p["out_proj"])
+    new_state = {"h": hT, "conv": conv_new} if state is not None else None
+    return out, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 block
+# ---------------------------------------------------------------------------
+
+def init_mamba(cfg: ArchConfig, gen: torch.Generator, stack: Stack = (),
+               dtype: torch.dtype = torch.float32) -> Params:
+    d, di, ds = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
+    dtr, s = cfg.ssm_dt_rank_, tuple(stack)
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                   device=gen.device))
+    return {
+        "in_proj": _dense_init(gen, s + (d, 2 * di), d, dtype),
+        "conv": _dense_init(gen, s + (cfg.ssm_conv, di), cfg.ssm_conv, dtype),
+        "x_proj": _dense_init(gen, s + (di, dtr + 2 * ds), di, dtype),
+        "dt_proj": _dense_init(gen, s + (dtr, di), dtr, dtype),
+        # softplus^-1(0.01): every channel starts at Δ = 0.01
+        "dt_bias": torch.full(s + (di,), float(np.log(np.expm1(0.01))),
+                              device=gen.device, dtype=dtype),
+        "A_log": a_log.expand(s + (di, ds)).to(dtype).clone(),
+        "D": torch.ones(s + (di,), device=gen.device, dtype=dtype),
+        "out_proj": _dense_init(gen, s + (di, d), di, dtype),
+    }
+
+
+def mamba_fwd(
+    cfg: ArchConfig,
+    p: Params,
+    x: torch.Tensor,  # (B, T, d)
+    state: Optional[Dict] = None,
+    use_kernel: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The Mamba-1 block.  ``Bc`` and ``Cc`` reach the scan as views of the
+    ``x_proj`` split (the kernel takes their strides); a float32 ``state``
+    promotes everything after the conv to float32, as in the reference."""
+    di, ds, dtr = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_dt_rank_
+    xz = _ein("btd,de->bte", x, p["in_proj"])
+    xi, z = torch.split(xz, di, dim=-1)
+    conv_prev = state["conv"] if state is not None else None
+    xi, conv_new = _causal_conv(xi, p["conv"], conv_prev)
+    xi = F.silu(xi)
+    proj = _ein("bti,ie->bte", xi, p["x_proj"])
+    dt, Bc, Cc = torch.split(proj, [dtr, ds, ds], dim=-1)
+    # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x above 20,
+    # where the two agree in float32 and bfloat16
+    delta = F.softplus(_ein("btr,ri->bti", dt, p["dt_proj"]) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    h0 = state["h"] if state is not None else None
+    y, hT = kops.ssm_scan(xi, delta, A, Bc, Cc, p["D"], h0,
+                          use_kernel=use_kernel)
+    y = y * F.silu(z)
+    out = _ein("bti,id->btd", y, p["out_proj"])
     new_state = {"h": hT, "conv": conv_new} if state is not None else None
     return out, new_state

@@ -21,7 +21,7 @@ float32 group parameter and the embedding to ``compute_dtype`` on every
 call, the port casts once (:func:`init` with ``dtype=``, or
 :func:`cast_params`), which gives the same numbers.  ``final_norm`` stays
 float32, as the reference leaves it.  Decode updates the cache in place.
-Mamba mixers and MoE FFNs wait for their slices of the port.
+MoE FFNs wait for their slice of the port.
 """
 from __future__ import annotations
 
@@ -37,8 +37,6 @@ Params = Dict[str, Any]
 
 #: the parts of the reference stack that later slices of the port bring
 _TODO = {
-    "ssm": "Mamba mixers (mamba_fwd, mamba_scan) are not ported yet: "
-           "ROADMAP.md queue 1, item 11a (falcon-mamba-7b serving)",
     "moe": "MoE FFNs (_moe_local, moe_dispatch) are not ported yet: "
            "ROADMAP.md queue 1, item 11b (granite-moe-3b-a800m)",
 }
@@ -53,10 +51,10 @@ def _init_block(cfg: ArchConfig, blk: Block, gen: torch.Generator, stack,
     p: Params = {"norm1": L.init_norm(cfg, stack, gen.device, dtype)}
     if blk.mixer == "attn":
         p["mixer"] = L.init_attention(cfg, gen, stack, dtype)
+    elif blk.mixer == "ssm":
+        p["mixer"] = L.init_mamba(cfg, gen, stack, dtype)
     elif blk.mixer == "rglru":
         p["mixer"] = L.init_rglru(cfg, gen, stack, dtype)
-    elif blk.mixer == "ssm":
-        raise NotImplementedError(_TODO["ssm"])
     else:
         raise ValueError(blk.mixer)
     if blk.ffn != "none":
@@ -118,6 +116,15 @@ def cast_params(params: Params, dtype: torch.dtype, device=None) -> Params:
 # caches
 # ---------------------------------------------------------------------------
 
+def _ssm_zero_state(cfg, B, dtype, device):
+    return {
+        "h": torch.zeros((B, cfg.ssm_d_inner, cfg.ssm_state),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((B, cfg.ssm_conv - 1, cfg.ssm_d_inner),
+                            dtype=dtype, device=device),
+    }
+
+
 def _rglru_zero_state(cfg, B, dtype, device):
     return {
         "h": torch.zeros((B, cfg.rglru_width), dtype=torch.float32,
@@ -146,7 +153,7 @@ def _zero_cache(cfg, blk: Block, B, max_len, dtype, kv_dtype, device):
     if blk.mixer == "rglru":
         return _rglru_zero_state(cfg, B, dtype, device)
     if blk.mixer == "ssm":
-        raise NotImplementedError(_TODO["ssm"])
+        return _ssm_zero_state(cfg, B, dtype, device)
     raise ValueError(blk.mixer)
 
 
@@ -179,8 +186,6 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int,
 
 def _block_fwd(cfg, blk: Block, p: Params, x, positions, cache, mode,
                use_kernels, max_cache_len):
-    if blk.mixer == "ssm":
-        raise NotImplementedError(_TODO["ssm"])
     if blk.ffn == "moe":
         raise NotImplementedError(_TODO["moe"])
     h = L.apply_norm(cfg, p["norm1"], x)
@@ -188,6 +193,13 @@ def _block_fwd(cfg, blk: Block, p: Params, x, positions, cache, mode,
         y, new_cache = L.attention_fwd(
             cfg, blk, p["mixer"], h, positions, cache=cache,
             use_kernel=use_kernels, mode=mode, max_cache_len=max_cache_len,
+        )
+    elif blk.mixer == "ssm":
+        if mode == "prefill" and cache is None:
+            cache = _ssm_zero_state(cfg, x.shape[0], x.dtype, x.device)
+        y, new_cache = L.mamba_fwd(
+            cfg, p["mixer"], h, state=cache if mode != "train" else None,
+            use_kernel=use_kernels,
         )
     elif blk.mixer == "rglru":
         if mode == "prefill" and cache is None:

@@ -14,8 +14,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.ref import (attention_ref, rglru_scan_ref,  # noqa: E402
-                                     segment_sum_ref)
+from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref, mamba_scan_ref,  # noqa: E402
+                                     rglru_scan_ref, segment_sum_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_sum  # noqa: E402
 from repro_torch.mapreduce.apps import word_count  # noqa: E402
@@ -253,6 +254,143 @@ def test_serve_engine_on_the_card_matches_the_plain_versions(card):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
                for n in (5, 40, 17)]
+    outputs = {}
+    for use_kernels in (True, False):
+        eng = ServeEngine(cfg, params, ServeConfig(slots=2, max_len=64,
+                                                   use_kernels=use_kernels))
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        outputs[use_kernels] = [r.output for r in reqs]
+    assert outputs[True] == outputs[False]
+
+
+def _mamba_inputs(B, T, Di, Ds, dtype, device, param_dtype="float32", seed=0):
+    """x, Δ = softplus(N), A = -softplus(N), B, C, D as the model gives
+    them: activations in ``dtype``, A and D in ``param_dtype``."""
+    x = _normal((B, T, Di), seed, device, dtype)
+    delta = torch.nn.functional.softplus(_normal((B, T, Di), seed + 1, device,
+                                                 "float32")).to(x.dtype)
+    A = -torch.nn.functional.softplus(_normal((Di, Ds), seed + 2, device,
+                                              "float32"))
+    Bc = _normal((B, T, Ds), seed + 3, device, dtype)
+    Cc = _normal((B, T, Ds), seed + 4, device, dtype)
+    D = _normal((Di,), seed + 5, device, "float32")
+    pd = getattr(torch, param_dtype)
+    return x, delta, A.to(pd), Bc, Cc, D.to(pd)
+
+
+#: the reference's bar for this kernel (tests/test_kernels.py:81-87)
+MAMBA_TOL = {"float32": dict(atol=5 * 2e-5, rtol=3e-2),
+             "bfloat16": dict(atol=5 * 2e-2, rtol=3e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,Di,Ds,with_h0", [
+    (2, 64, 32, 8, False), (1, 100, 64, 16, True), (1, 33, 16, 4, False),
+    (2, 70, 40, 32, True), (3, 9, 20, 5, True), (1, 1, 128, 16, False),
+    (4, 1, 8192, 16, True), (1, 3000, 8192, 16, True),
+])
+def test_mamba_scan_matches_plain_version(card, dtype, B, T, Di, Ds, with_h0):
+    x, delta, A, Bc, Cc, D = _mamba_inputs(B, T, Di, Ds, dtype, card,
+                                           param_dtype="bfloat16")
+    h0 = _normal((B, Di, Ds), 6, card, "float32") if with_h0 else None
+    before = mamba_scan.launches
+    y, h_t = mamba_scan(x, delta, A, Bc, Cc, D, h0)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == before + 1
+    y_ref, h_ref = mamba_scan_ref(x, delta, A, Bc, Cc, D, h0)
+    assert y.dtype == x.dtype and h_t.dtype == torch.float32
+    assert y.shape == x.shape and h_t.shape == (B, Di, Ds)
+    torch.testing.assert_close(y.float(), y_ref.float(), **MAMBA_TOL[dtype])
+    torch.testing.assert_close(h_t, h_ref, **MAMBA_TOL[dtype])
+
+
+def test_mamba_scan_takes_strided_b_and_c(card):
+    """B and C as views of one (B, T, r + 2·Ds) projection, as mamba_fwd
+    splits them."""
+    x, delta, A, _, _, D = _mamba_inputs(2, 40, 64, 16, "float32", card)
+    proj = _normal((2, 40, 8 + 32), 7, card, "float32")
+    _, Bc, Cc = torch.split(proj, [8, 16, 16], dim=-1)
+    assert not Bc.is_contiguous()
+    y, h_t = mamba_scan(x, delta, A, Bc, Cc, D)
+    y_ref, h_ref = mamba_scan_ref(x, delta, A, Bc.contiguous(),
+                                  Cc.contiguous(), D)
+    torch.testing.assert_close(y, y_ref, **MAMBA_TOL["float32"])
+    torch.testing.assert_close(h_t, h_ref, **MAMBA_TOL["float32"])
+
+
+def test_mamba_scan_carries_state(card):
+    """Two halves with the carried state == the whole sequence."""
+    x, delta, A, Bc, Cc, D = _mamba_inputs(1, 64, 32, 8, "float32", card)
+    y_full, h_full = mamba_scan(x, delta, A, Bc, Cc, D)
+    halves = [t[:, :32].contiguous() for t in (x, delta, Bc, Cc)]
+    y1, s = mamba_scan(halves[0], halves[1], A, halves[2], halves[3], D)
+    rest = [t[:, 32:].contiguous() for t in (x, delta, Bc, Cc)]
+    y2, s2 = mamba_scan(rest[0], rest[1], A, rest[2], rest[3], D, h0=s)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(s2, h_full, atol=1e-5, rtol=1e-5)
+
+
+def test_mamba_scan_wrapper_raises(card):
+    x, delta, A, Bc, Cc, D = _mamba_inputs(2, 5, 8, 4, "float32", card)
+    with pytest.raises(ValueError, match="delta on cpu"):
+        mamba_scan(x, delta.cpu(), A, Bc, Cc, D)
+    with pytest.raises(ValueError, match="h0 must be"):
+        mamba_scan(x, delta, A, Bc, Cc, D, torch.zeros(2, 8, 3, device=card))
+    with pytest.raises(TypeError, match="h0 dtype"):
+        mamba_scan(x, delta, A, Bc, Cc, D,
+                   torch.zeros(2, 8, 4, device=card, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="Bc dtype"):
+        mamba_scan(x, delta, A, Bc.bfloat16(), Cc, D)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mamba_scan(x.double(), delta.double(), A, Bc.double(), Cc.double(), D)
+    with pytest.raises(ValueError, match="contiguous"):
+        xt = x.transpose(0, 1).contiguous().transpose(0, 1)
+        mamba_scan(xt, delta, A, Bc, Cc, D)
+    big = torch.zeros(8, 33, device=card)
+    with pytest.raises(ValueError, match="d_state 33"):
+        mamba_scan(x, delta, big, torch.zeros(2, 5, 33, device=card),
+                   torch.zeros(2, 5, 33, device=card), D)
+
+
+def test_falcon_mamba_path_runs_the_kernel(card):
+    """The reduced Falcon-Mamba in float32: prefill and three decode steps
+    launch the kernel once per layer and call (2 layers × 4) and agree
+    with the plain versions to atol/rtol 1e-4."""
+    cfg = ARCHS["falcon-mamba-7b"].reduced()
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = M.init(cfg, gen, device=card)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 40))).to(card)
+    runs = {}
+    for use_kernels in (True, False):
+        before = mamba_scan.launches
+        logits, cache, _ = M.prefill(cfg, params, {"tokens": toks},
+                                     max_cache_len=64, use_kernels=use_kernels)
+        outs = [logits]
+        for i in range(3):
+            batch = {"tokens": toks[:, i:i + 1],
+                     "positions": torch.full((2, 1), 40 + i, device=card)}
+            outs.append(M.decode_step(cfg, params, batch, cache,
+                                      use_kernels=use_kernels)[0])
+        torch.cuda.synchronize()
+        assert mamba_scan.launches - before == (2 * 4 if use_kernels else 0)
+        runs[use_kernels] = outs
+    for got, want in zip(runs[True], runs[False]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_falcon_mamba_engine_on_the_card_matches_the_plain_versions(card):
+    cfg = ARCHS["falcon-mamba-7b"].reduced()
+    gen = torch.Generator(device=card).manual_seed(1)
+    params = M.init(cfg, gen, device=card)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (1, 40, 17)]
     outputs = {}
     for use_kernels in (True, False):
         eng = ServeEngine(cfg, params, ServeConfig(slots=2, max_len=64,

@@ -1,5 +1,5 @@
 """The port's kernels' plain PyTorch versions (``segment_sum``,
-``flash_attention``, ``rglru_scan``) against the reference's Pallas
+``flash_attention``, ``mamba_scan``, ``rglru_scan``) against the reference's Pallas
 kernels (interpret mode on the CPU) and jnp oracles, and the CPU dispatch
 of the wrappers and the ops layer.  The Hopper kernels themselves are held
 against the plain versions in ``test_torch_cuda.py``."""
@@ -12,12 +12,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as rref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_attention  # noqa: E402
+from repro.kernels.mamba_scan import mamba_scan as pallas_mamba  # noqa: E402
 from repro.kernels.rglru_scan import rglru_scan as pallas_rglru  # noqa: E402
 from repro.kernels.segment_reduce import segment_sum as pallas_segment_sum  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.ref import (attention_ref, rglru_scan_ref,  # noqa: E402
-                                     segment_sum_ref)
+from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref, mamba_scan_ref,  # noqa: E402
+                                     rglru_scan_ref, segment_sum_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_sum  # noqa: E402
 
@@ -186,3 +188,93 @@ def test_lm_kernels_on_cpu_take_the_plain_versions():
         torch.testing.assert_close(y, wy, atol=0.0, rtol=0.0)
         torch.testing.assert_close(h, wh, atol=0.0, rtol=0.0)
     assert (flash_attention.launches, rglru_scan.launches) == before
+
+
+#: the reference's bar for the Mamba kernel (tests/test_kernels.py:81-87):
+#: atol 5 × the kernel tolerance, rtol 3e-2
+MAMBA_TOL = {"float32": dict(atol=5 * 2e-5, rtol=3e-2),
+             "bfloat16": dict(atol=5 * 2e-2, rtol=3e-2)}
+
+
+def _softplus(a):
+    return np.logaddexp(a, 0.0).astype(np.float32)
+
+
+def _mamba_inputs(B, T, Di, Ds, seed=0):
+    """x, Δ = softplus(N), A = -softplus(N), B, C, D: the reference kernel
+    tests' distributions, from numpy."""
+    return (_normal((B, T, Di), seed), _softplus(_normal((B, T, Di), seed + 1)),
+            -_softplus(_normal((Di, Ds), seed + 2)), _normal((B, T, Ds), seed + 3),
+            _normal((B, T, Ds), seed + 4), _normal((Di,), seed + 5))
+
+
+def _mamba_both(arrays, h0, dtype):
+    """(jax arrays, torch tensors) of the Mamba inputs: x, Δ, B and C in
+    ``dtype``, A, D and h0 in float32, as the reference tests give them."""
+    x, delta, A, Bc, Cc, D = arrays
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    act = (0, 1, 3, 4)
+    j = [jnp.asarray(a, jd if i in act else jnp.float32)
+         for i, a in enumerate(arrays)]
+    t = [torch.from_numpy(a).to(td if i in act else torch.float32)
+         for i, a in enumerate(arrays)]
+    j.append(None if h0 is None else jnp.asarray(h0))
+    t.append(None if h0 is None else torch.from_numpy(h0))
+    return j, t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,T,Di,Ds,chunk", [
+    (2, 64, 32, 8, 16), (1, 100, 64, 16, 32), (1, 33, 16, 4, 16)])
+def test_mamba_plain_version_matches_reference(dtype, with_h0, B, T, Di, Ds,
+                                               chunk):
+    """Against the reference's plain version and its Pallas kernel
+    (interpret mode), at the reference kernel tests' shapes."""
+    arrays = _mamba_inputs(B, T, Di, Ds)
+    h0 = _normal((B, Di, Ds), 6) if with_h0 else None
+    j, t = _mamba_both(arrays, h0, dtype)
+    pallas = pallas_mamba(*j, chunk=chunk, block_d=Di)
+    oracle = rref.mamba_scan_ref(*j)
+    y, h_t = mamba_scan_ref(*t)
+    assert y.dtype == getattr(torch, dtype) and h_t.dtype == torch.float32
+    assert tuple(y.shape) == (B, T, Di) and tuple(h_t.shape) == (B, Di, Ds)
+    for want_y, want_h in (pallas, oracle):
+        np.testing.assert_allclose(y.float().numpy(),
+                                   np.asarray(want_y.astype(jnp.float32)),
+                                   **MAMBA_TOL[dtype])
+        np.testing.assert_allclose(h_t.numpy(), np.asarray(want_h),
+                                   **MAMBA_TOL[dtype])
+
+
+def test_mamba_two_halves_equal_the_whole():
+    """Scanning two halves with the carried state == scanning the whole
+    (the reference's ``test_stateful_equals_full``)."""
+    x, delta, A, Bc, Cc, D = (torch.from_numpy(a)
+                              for a in _mamba_inputs(1, 64, 32, 8, seed=2))
+    y, h = mamba_scan_ref(x, delta, A, Bc, Cc, D)
+    y1, h1 = mamba_scan_ref(x[:, :32], delta[:, :32], A, Bc[:, :32],
+                            Cc[:, :32], D)
+    y2, h2 = mamba_scan_ref(x[:, 32:], delta[:, 32:], A, Bc[:, 32:],
+                            Cc[:, 32:], D, h1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(h2, h, atol=1e-5, rtol=1e-5)
+
+
+def test_mamba_scan_on_cpu_takes_the_plain_version():
+    """The wrapper and ``ops.ssm_scan`` on CPU tensors, with A and D in
+    another dtype than the activations (bf16 parameters, float32 decode
+    activations), launch nothing."""
+    x, delta, A, Bc, Cc, D = (torch.from_numpy(a)
+                              for a in _mamba_inputs(2, 5, 8, 4, seed=3))
+    A, D = A.bfloat16(), D.bfloat16()
+    h0 = torch.from_numpy(_normal((2, 8, 4), 4))
+    before = mamba_scan.launches
+    wy, wh = mamba_scan_ref(x, delta, A, Bc, Cc, D, h0)
+    for y, h in (mamba_scan(x, delta, A, Bc, Cc, D, h0),
+                 ops.ssm_scan(x, delta, A, Bc, Cc, D, h0),
+                 ops.ssm_scan(x, delta, A, Bc, Cc, D, h0, use_kernel=False)):
+        torch.testing.assert_close(y, wy, atol=0.0, rtol=0.0)
+        torch.testing.assert_close(h, wh, atol=0.0, rtol=0.0)
+    assert mamba_scan.launches == before

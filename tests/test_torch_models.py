@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro.configs import ARCHS as REF_ARCHS  # noqa: E402
 from repro.configs import padded_for_tp as ref_padded_for_tp  # noqa: E402
@@ -27,8 +28,10 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 CPU = torch.device("cpu")
 
 #: RecurrentGemma (RG-LRU + local attention + tail), qwen3 (qk-norm, tied
-#: embeddings, GQA), stablelm (layernorm, MHA), olmo (non-parametric LN)
-ARCH_NAMES = ["recurrentgemma-9b", "qwen3-1.7b", "stablelm-1.6b", "olmo-1b"]
+#: embeddings, GQA), stablelm (layernorm, MHA), olmo (non-parametric LN),
+#: Falcon-Mamba (Mamba-1 mixers only, untied embeddings)
+ARCH_NAMES = ["recurrentgemma-9b", "qwen3-1.7b", "stablelm-1.6b", "olmo-1b",
+              "falcon-mamba-7b"]
 
 
 def _np_tree(tree):
@@ -168,7 +171,7 @@ def test_init_matches_the_reference_tree():
 
 
 def test_unported_mixers_raise():
-    for name in ("falcon-mamba-7b", "granite-moe-3b-a800m"):
+    for name in ("granite-moe-3b-a800m",):
         cfg = ARCHS[name].reduced()
         gen = torch.Generator(device="cpu").manual_seed(0)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -207,6 +210,74 @@ def test_rglru_fwd_matches(with_state):
         _assert_tree_close(gstate, _np_tree(wstate))
     else:
         assert gstate is None and wstate is None
+
+
+def _fm_cfgs():
+    return (REF_ARCHS["falcon-mamba-7b"].reduced(),
+            ARCHS["falcon-mamba-7b"].reduced())
+
+
+def test_prefill_matches_the_reference_kernel_path():
+    """Falcon-Mamba's prefill against the reference's ``use_kernels=True``
+    path, which at 80 tokens and d_inner 128 runs its Pallas ``mamba_scan``
+    (interpret mode on the CPU); the port's CPU path is the plain version."""
+    rcfg, pcfg = _fm_cfgs()
+    rparams = RM.init(rcfg, jax.random.PRNGKey(4))
+    pparams = lm_params_from_numpy(pcfg, _np_tree(rparams), device=CPU)
+    toks = _tokens(rcfg.vocab, 1, 80, seed=5)
+    rl, rcache, _ = RM.prefill(rcfg, rparams, {"tokens": jnp.asarray(toks)},
+                               max_cache_len=96, use_kernels=True)
+    pl, pcache, _ = M.prefill(pcfg, pparams, {"tokens": torch.from_numpy(toks)},
+                              max_cache_len=96, use_kernels=True)
+    _assert_close(pl, rl)
+    _assert_tree_close(pcache, _np_tree(rcache))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba_fwd_matches(with_state):
+    """The Mamba-1 block, with a non-trivial dt_bias, A_log and D, without a
+    state (training) and with a float32 carried state (decode)."""
+    rcfg, pcfg = _fm_cfgs()
+    rp = RL.init_mamba(rcfg, jax.random.PRNGKey(3))
+    rng = np.random.default_rng(3)
+    rp = dict(rp, dt_bias=jnp.asarray(rng.normal(size=rp["dt_bias"].shape),
+                                      jnp.float32),
+              A_log=jnp.asarray(rng.normal(size=rp["A_log"].shape), jnp.float32),
+              D=jnp.asarray(rng.normal(size=rp["D"].shape), jnp.float32))
+    pp = {k: _t(v) for k, v in _np_tree(rp).items()}
+    x = _x((2, 7, rcfg.d_model), seed=4)
+    rstate = pstate = None
+    if with_state:
+        h = _x((2, rcfg.ssm_d_inner, rcfg.ssm_state), seed=5)
+        conv = _x((2, rcfg.ssm_conv - 1, rcfg.ssm_d_inner), seed=6)
+        rstate = {"h": jnp.asarray(h), "conv": jnp.asarray(conv)}
+        pstate = {"h": _t(h), "conv": _t(conv)}
+    want, wstate = RL.mamba_fwd(rcfg, rp, jnp.asarray(x), state=rstate)
+    got, gstate = L.mamba_fwd(pcfg, pp, torch.from_numpy(x), state=pstate)
+    _assert_close(got, want)
+    if with_state:
+        _assert_tree_close(gstate, _np_tree(wstate))
+    else:
+        assert gstate is None and wstate is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softplus_matches_jax(dtype):
+    """``F.softplus``, which ``mamba_fwd`` takes for Δ, returns x above 20
+    where jax takes logaddexp(x, 0): above the switch the two are equal,
+    and everywhere they agree to two units in the last place of the dtype
+    (the two libraries' exp and log1p round differently): 2^-22 relative
+    in float32, 2^-7 in bfloat16."""
+    x = np.concatenate([np.linspace(-60.0, 60.0, 4001),
+                        np.linspace(19.0, 21.0, 2001)]).astype(np.float32)
+    want = jax.nn.softplus(jnp.asarray(x, getattr(jnp, dtype)))
+    got = F.softplus(torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    above = x > 20.0
+    np.testing.assert_array_equal(got[above], want[above])
+    two_ulps = 2.0 ** -22 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(got, want, atol=0.0, rtol=two_ulps)
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)

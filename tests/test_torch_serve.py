@@ -4,7 +4,9 @@
   tokens of re-running the reference's ``forward`` — the case where the
   reference engine loses the tail blocks' recurrent state.
 * On the reduced qwen3 (no tail) it gives exactly the reference engine's
-  tokens.
+  tokens, and on the reduced Falcon-Mamba (every cache leaf a recurrent
+  state stacked over groups) both the reference engine's tokens and those
+  of greedy re-running of the port's own ``forward``.
 * Continuous batching, sampling, and the entry points' refusal to fall
   back to the CPU quietly.
 """
@@ -46,6 +48,11 @@ def rgemma():
 @pytest.fixture(scope="module")
 def qwen():
     return _pair("qwen3-1.7b")
+
+
+@pytest.fixture(scope="module")
+def falcon():
+    return _pair("falcon-mamba-7b")
 
 
 #: reference greedy tokens by (config, prompt, n), shared by the tests of
@@ -121,6 +128,47 @@ def test_qwen3_engine_matches_reference_engine(qwen):
     assert port.step_count == ref.step_count
 
 
+def _port_greedy(cfg, params, prompt, n):
+    """Greedy decoding by re-running the port's whole forward per token."""
+    toks, out = [int(t) for t in prompt], []
+    for _ in range(n):
+        logits, _, _ = M.forward(cfg, params,
+                                 {"tokens": torch.tensor([toks])})
+        out.append(int(torch.argmax(logits[0, -1])))
+        toks.append(out[-1])
+    return out
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+def test_falcon_mamba_engine_matches_reference_engine(falcon, slots):
+    """Each slot's conv and SSM state are merged on axis 1 of the
+    group-stacked leaves and carried through decode: the tokens, the time
+    to first token and the step count equal the reference engine's, and
+    each request's tokens equal greedy re-running of ``M.forward``."""
+    rcfg, pcfg, rparams, pparams = falcon
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, rcfg.vocab, size=n).astype(np.int32)
+               for n in (6, 1, 13, 4, 9)]
+    ref = RefServeEngine(rcfg, rparams, RefServeConfig(slots=slots, max_len=48))
+    port = ServeEngine(pcfg, pparams, ServeConfig(slots=slots, max_len=48),
+                       device=CPU)
+    ref_reqs = [RefRequest(rid=i, prompt=p, max_new_tokens=2 + i)
+                for i, p in enumerate(prompts)]
+    port_reqs = [Request(rid=i, prompt=p, max_new_tokens=2 + i)
+                 for i, p in enumerate(prompts)]
+    for r in ref_reqs:
+        ref.submit(r)
+    for r in port_reqs:
+        port.submit(r)
+    ref_done, port_done = ref.run(), port.run()
+    assert [r.rid for r in port_done] == [r.rid for r in ref_done]
+    for a, b in zip(ref_reqs, port_reqs):
+        assert b.output == a.output and b.ttft_steps == a.ttft_steps, b.rid
+        assert b.output == _port_greedy(pcfg, pparams, b.prompt,
+                                        b.max_new_tokens), b.rid
+    assert port.step_count == ref.step_count
+
+
 def test_continuous_batching_serves_all(qwen):
     """tests/test_substrate.py's continuous-batching test, on the port."""
     _, cfg, _, params = qwen
@@ -173,6 +221,13 @@ def test_launch_serve_on_the_cpu(capsys):
                               "--slots", "2", "--max-new", "4", "--max-len", "64"])
     assert len(done) == 3 and all(len(r.output) == 4 for r in done)
     assert "recurrentgemma-9b-smoke on cpu" in capsys.readouterr().out
+
+
+def test_launch_serve_falcon_mamba_on_the_cpu(capsys):
+    done = launch_serve.main(["--arch", "falcon-mamba-7b", "--reduced",
+                              "--device", "cpu"])
+    assert len(done) == 8 and all(len(r.output) == 16 for r in done)
+    assert "falcon-mamba-7b-smoke on cpu" in capsys.readouterr().out
 
 
 @pytest.fixture
