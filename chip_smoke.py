@@ -59,6 +59,24 @@ Phases:
    ``h0``; the float32 decode step against bfloat16 A and D), with times;
    then a full-width cut to depth 4 in float32, kernels against plain
    versions, as in phase 6.
+9. Serving Granite-MoE-3B-A800M, after Falcon-Mamba's weights are freed: 32
+   layers of GQA attention (24 heads, 8 kv heads, head dim 64) and a
+   40-expert top-8 MoE FFN, d_model 1536, vocab 49155, at full width and
+   depth in bfloat16 (6.60 GB) through the same engine and traffic as
+   phase 7.  The same checks, with ``moe_dispatch`` launched exactly 32
+   times per admission and per decode step and ``flash_attention`` 32
+   times per admission and never in decode.
+10. ``moe_dispatch`` against its plain version at the served shapes (the
+    3000-token prefill's 24,000 routed rows into (40, 750, 1536) and the
+    4-slot decode step's 32 into (40, 8, 1536)), in bfloat16 and float32:
+    bit for bit where every (expert, slot) pair is unique, to a stated
+    tolerance where the served capacity rule repeats pairs; and
+    ``flash_attention`` at Granite's prefill shape; with times.  Then a
+    full-width cut to depth 4 in float32: with the same attention, the
+    model with the ``moe_dispatch`` kernel equals the one with its plain
+    version bit for bit; with all kernels against all plain versions, the
+    routing choices that differ are counted (at most 1%) and the logits
+    are held to the model tolerance where routing agreed in every layer.
 
 After the phases, one ``{"kernels": [...]}`` line lists every kernel.
 
@@ -96,9 +114,10 @@ MODEL_TOL = (1e-3, 1e-3)
 N_DOCS, WORDS_PER_DOC, VOCAB = 20_000, 1_000, 1 << 20
 N_RESTARTS, STEPS = 24, 500
 BATCH = 64
-KERNELS = ("segment_sum", "flash_attention", "rglru_scan", "mamba_scan")
+KERNELS = ("segment_sum", "flash_attention", "rglru_scan", "mamba_scan",
+           "moe_dispatch")
 #: the kernels of the LM serving paths, and what each is counted on
-LM_KERNELS = ("flash_attention", "rglru_scan", "mamba_scan")
+LM_KERNELS = ("flash_attention", "rglru_scan", "mamba_scan", "moe_dispatch")
 
 #: serving scale: prompts on both sides of the 2048 window, a ragged
 #: 64-row tile (17) and the longest served prompt (3000)
@@ -109,6 +128,14 @@ SERVE_RANDOM_PROMPTS = 4
 #: Falcon-Mamba: a one-token prompt, a ragged one and the longest served
 MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_PROMPTS = (1, 17, 2048, 3000)
+#: Granite-MoE: the same traffic as Falcon-Mamba's
+GRANITE_ARCH = "granite-moe-3b-a800m"
+GRANITE_PROMPTS = MAMBA_PROMPTS
+#: the most (token, layer) routing choices that may differ between the
+#: kernels and the plain versions in the float32 cut: flash_attention sums
+#: in another order (~1e-6), which flips a top-k choice where two gates
+#: nearly tie
+ROUTING_FLIPS_MAX = 0.01
 #: one card's device memory
 CARD_BYTES = 80e9
 #: the reference's bar for the Mamba kernel (tests/test_kernels.py:81-87):
@@ -551,20 +578,24 @@ def _lm_kernels():
     """The LM kernels' wrappers by name, whose ``.launches`` count."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
     from repro_torch.kernels.rglru_scan import rglru_scan
 
     return {"flash_attention": flash_attention, "rglru_scan": rglru_scan,
-            "mamba_scan": mamba_scan}
+            "mamba_scan": mamba_scan, "moe_dispatch": moe_dispatch}
 
 
 def expected_launches(cfg):
     """Launches of each LM kernel per admission (a prefill) and per decode
-    step: attention prefills only, the recurrences every call."""
+    step: attention prefills only, the recurrences and the MoE dispatch
+    every call."""
     blocks = list(cfg.pattern) * cfg.n_groups + list(cfg.tail)
     n = {m: sum(b.mixer == m for b in blocks) for m in ("attn", "rglru", "ssm")}
+    n_moe = sum(b.ffn == "moe" for b in blocks)
     return {"flash_attention": (n["attn"], 0),
             "rglru_scan": (n["rglru"], n["rglru"]),
-            "mamba_scan": (n["ssm"], n["ssm"])}
+            "mamba_scan": (n["ssm"], n["ssm"]),
+            "moe_dispatch": (n_moe, n_moe)}
 
 
 def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
@@ -1029,6 +1060,306 @@ def phase_model_kernels_vs_plain(device, arch=SERVE_ARCH, depth=None, cfg=None,
     del params
 
 
+def moe_capacity(n_tokens, top_k, n_experts, capacity_factor):
+    """The MoE layer's capacity C for ``n_tokens`` routed together."""
+    import math
+
+    return max(int(math.ceil(n_tokens * top_k / n_experts * capacity_factor)),
+               top_k)
+
+
+def moe_bound_ms(n_kept, t, d, e, c, elem):
+    """Least time: the kept rows read once, every expert id and slot read
+    once, the (E, C, D) buffers written once; one float32 add per kept
+    element.  Returns (ms, "bytes" | "operations")."""
+    n_bytes = n_kept * d * elem + 8 * t + e * c * d * elem
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_kept * d / F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _routed(n_tokens, top_k, n_experts, capacity, d, dtype, rule, device,
+            seed):
+    """Routed rows as the MoE layer hands them to the dispatch: each token
+    repeated top_k times, expert ids from a skewed router (a Dirichlet(2)
+    load, so some experts overflow), slots from compute_slots.  ``rule``
+    "unique": rows past C dropped (slot C), every kept pair unique (a
+    float32 plan capacity of 1.0); "served": the layer's rule at the
+    bfloat16 plan capacity of 1.0, whose capacity round(bf16(1) * C) may
+    exceed C (bf16(750) = 752), the rows past C-1 then adding into slot
+    C-1."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.moe_dispatch import compute_slots
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n_tokens, d), dtype=np.float32))
+    tokens = x.to(device, dtype).repeat_interleave(top_k, dim=0)
+    load = rng.dirichlet(np.full(n_experts, 2.0))
+    ids = np.stack([rng.choice(n_experts, size=top_k, replace=False, p=load)
+                    for _ in range(n_tokens)]).reshape(-1)
+    ids = torch.from_numpy(ids.astype(np.int32)).to(device)
+    slots = compute_slots(ids, n_experts)
+    cap = capacity
+    if rule == "served":
+        one = torch.ones((), dtype=torch.bfloat16)
+        cap = max(int(torch.round(one * capacity)), 1)
+    slots = torch.where(slots < cap, slots.clamp(max=capacity - 1),
+                        capacity).int()
+    return tokens, ids, slots
+
+
+def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
+                     d=1536, n_experts=40, top_k=8, capacity_factor=1.25,
+                     hq=24, hkv=8, dh=64):
+    """moe_dispatch against its plain version at the served shapes, with
+    times; flash_attention at Granite's prefill shape.  Returns the
+    moe_dispatch kernels-line entry and flash_attention's numbers at
+    Granite's shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    from repro_torch.kernels.ref import attention_ref, moe_dispatch_ref
+
+    print("== phase 10a: moe_dispatch and flash_attention (Granite's shapes) "
+          "against their plain versions", flush=True)
+    # repeated pairs: at most 3 float32 rows add into one slot, in an order
+    # that changes from run to run (~2 float32 ulps of the sum); a bfloat16
+    # output may then round to the neighbouring value (one bf16 ulp, 2^-7
+    # relative at most)
+    tol = {"torch.float32": (1e-5, 1e-6), "torch.bfloat16": (1e-5, 2 ** -7)}
+    err_max, timed = 0.0, {}
+    for n_tokens, label in ((prompt_len, "prefill"), (slots, "decode")):
+        c = moe_capacity(n_tokens, top_k, n_experts, capacity_factor)
+        for dtype in (torch.bfloat16, torch.float32):
+            for rule in ("unique", "served"):
+                args = _routed(n_tokens, top_k, n_experts, c, d, dtype, rule,
+                               device, seed=4)
+                got = moe_dispatch(*args, n_experts, c)
+                _sync(device)
+                want = moe_dispatch_ref(*args, n_experts, c)
+                tokens, ids, slot_ids = args
+                kept = slot_ids < c
+                pairs = ids[kept].long() * c + slot_ids[kept].long()
+                repeats = int(kept.sum()) - int(pairs.unique().numel())
+                if rule == "unique" or repeats == 0:
+                    ok = torch.equal(got, want)
+                    err = 0.0 if ok else float((got.float() - want.float())
+                                               .abs().max())
+                    how = "bit for bit"
+                else:
+                    ok, err = _close(got, want, *tol[str(dtype)])
+                    how = f"atol {tol[str(dtype)][0]}, rtol {tol[str(dtype)][1]}"
+                check(ok and got.dtype == dtype and tuple(got.shape) ==
+                      (n_experts, c, d),
+                      f"moe_dispatch {label} {rule} {dtype}: max |err| {err} "
+                      f"({how})")
+                err_max = max(err_max, err)
+                print(f"moe_dispatch {label} T={tokens.shape[0]} D={d} "
+                      f"E={n_experts} C={c} {dtype} {rule}: kept "
+                      f"{int(kept.sum())}, repeated pairs {repeats}, max "
+                      f"|err| {err!r} ({how})")
+                timed[(label, dtype, rule)] = (args, c, int(kept.sum()))
+
+    entry = None
+    for label in ("prefill", "decode"):
+        for dtype in (torch.bfloat16, torch.float32):
+            (tokens, ids, slot_ids), c, n_kept = timed[(label, dtype, "unique")]
+            t = tokens.shape[0]
+            e_c = n_experts * c
+            flat = torch.where(slot_ids < c, ids.long() * c + slot_ids.long(),
+                               e_c)
+
+            def library():  # one PyTorch call: index_add_ into (E·C + 1, D)
+                return torch.zeros((e_c + 1, d), dtype=dtype,
+                                   device=device).index_add_(0, flat, tokens)
+
+            run = lambda: moe_dispatch(tokens, ids, slot_ids, n_experts, c)  # noqa: E731
+            ms = time_ms(run, runs=10, per_run=5)
+            dev_ms = kernel_device_ms(run, "moe_dispatch_kernel", calls=5)
+            plain = time_ms(lambda: moe_dispatch_ref(tokens, ids, slot_ids,
+                                                     n_experts, c),
+                            runs=5, per_run=2)
+            lib_ms = time_ms(library, runs=10, per_run=5)
+            bound, bound_by = moe_bound_ms(n_kept, t, d, n_experts, c,
+                                           tokens.element_size())
+            print(f"timing moe_dispatch {label} T={t} D={d} E={n_experts} "
+                  f"C={c} {dtype}: wrapper {ms!r} ms  kernel (device) "
+                  f"{dev_ms!r} ms  plain {plain!r} ms  library (index_add_) "
+                  f"{lib_ms!r} ms  bound {bound!r} ms ({bound_by})")
+            if label == "prefill" and dtype == torch.bfloat16:
+                entry = {
+                    "name": "moe_dispatch", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+                    "replaces": "src/repro/kernels/moe_dispatch.py:36",
+                    "launches": launches["moe_dispatch"],
+                    "max_abs_err": err_max, "ms": ms,
+                    "kernel_device_ms": dev_ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": lib_ms,
+                    "shape": {"T": t, "D": d, "E": n_experts, "C": c,
+                              "kept": n_kept, "dtype": str(dtype)},
+                }
+
+    # flash_attention at Granite's prefill: GQA 24/8, Dh 64, causal
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    flash = {"max_abs_err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = KERNEL_TOL[str(dtype)]
+        q, k, v = (torch.randn((1, h, prompt_len, dh), generator=gen)
+                   .to(device, dtype) for h in (hq, hkv, hkv))
+        got = flash_attention(q, k, v, causal=True)
+        _sync(device)
+        want = attention_ref(q, k, v, causal=True)
+        ok, err = _close(got, want, atol, rtol)
+        check(ok and got.dtype == dtype, f"flash_attention Granite shape "
+              f"{dtype}: max |err| {err} over atol {atol} rtol {rtol}")
+        flash["max_abs_err"] = max(flash["max_abs_err"], err)
+        print(f"flash_attention (1,{hq},{prompt_len},{dh}) Hkv {hkv} causal "
+              f"{dtype}: max |err| {err!r} (atol {atol}, rtol {rtol})")
+        if dtype == torch.bfloat16:
+            run = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+            flash["ms"] = time_ms(run, runs=10, per_run=5)
+            flash["kernel_device_ms"] = kernel_device_ms(
+                run, "flash_attention_kernel", calls=5)
+            flash["plain_ms"] = time_ms(lambda: attention_ref(q, k, v),
+                                        runs=5, per_run=1, warmup=1)
+            flash["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                       enable_gqa=True),
+                runs=10, per_run=5)
+            flash["bound_ms"], flash["bound_by"] = flash_bound_ms(
+                q, k, True, None, 0)
+            flash["shape"] = {"B": 1, "Hq": hq, "Hkv": hkv, "T": prompt_len,
+                              "S": prompt_len, "Dh": dh, "window": None,
+                              "dtype": str(dtype)}
+    print(f"timing flash_attention (1,{hq},{prompt_len},{dh}) Hkv {hkv} causal "
+          f"bfloat16: wrapper {flash['ms']!r} ms  kernel (device) "
+          f"{flash['kernel_device_ms']!r} ms  plain {flash['plain_ms']!r} ms  "
+          f"library (sdpa, is_causal, enable_gqa) {flash['library_ms']!r} ms  "
+          f"bound {flash['bound_ms']!r} ms ({flash['bound_by']})")
+    return entry, flash
+
+
+def _routing_recorder():
+    """Wrap ``layers.route`` so that each MoE call's top-k expert ids are
+    recorded; returns (the list they go to, a function that unwraps)."""
+    from repro_torch.models import layers as L
+
+    real, calls = L.route, []
+
+    def recording(cfg, p, x2d):
+        out = real(cfg, p, x2d)
+        calls.append(out[2].sort(dim=-1).values)
+        return out
+
+    L.route = recording
+
+    def restore():
+        L.route = real
+
+    return calls, restore
+
+
+def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
+                    prompt_len=3000, max_len=SERVE_MAX_LEN, steps=3):
+    """A full-width float32 cut of Granite: (a) the moe_dispatch kernel
+    against its plain version with the same attention, bit for bit; (b)
+    all kernels against all plain versions, routing flips counted and the
+    logits held where routing agreed in every layer."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import moe_dispatch_ref
+    from repro_torch.models import model as M
+
+    base = cfg or get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=depth)
+    print(f"== phase 10b: {cfg.name} at full width and depth {depth}, kernels "
+          "against plain versions (float32)", flush=True)
+    kernels = _lm_kernels()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    params = M.init(cfg, gen, device=device, dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, prompt_len)),
+                             device=device)
+    feed = rng.integers(0, cfg.vocab, size=steps)
+
+    def run(use_kernels):
+        """(logits of the prefill and each decode step, routing per MoE
+        call, launches by kernel)."""
+        before = {k: w.launches for k, w in kernels.items()}
+        calls, restore = _routing_recorder()
+        try:
+            logits, cache, _ = M.prefill(cfg, params, {"tokens": tokens},
+                                         max_cache_len=max_len,
+                                         use_kernels=use_kernels)
+            outs = [logits]
+            for i, tok in enumerate(feed):
+                batch = {"tokens": torch.tensor([[int(tok)]], device=device),
+                         "positions": torch.tensor([[prompt_len + i]],
+                                                   device=device)}
+                outs.append(M.decode_step(cfg, params, batch, cache,
+                                          use_kernels=use_kernels)[0])
+            _sync(device)
+        finally:
+            restore()
+        return outs, calls, {k: w.launches - before[k]
+                             for k, w in kernels.items()}
+
+    n_moe = expected_launches(cfg)["moe_dispatch"][0]
+    with_kernels, routes_k, launched = run(True)
+    check(launched["moe_dispatch"] == n_moe * (1 + steps)
+          and launched["flash_attention"] == n_moe,
+          f"kernel run launched {launched}")
+    # (a) the same attention (the flash kernel), the plain dispatch
+    real = ops.moe_dispatch
+    ops.moe_dispatch = moe_dispatch_ref
+    try:
+        plain_dispatch, routes_a, launched = run(True)
+    finally:
+        ops.moe_dispatch = real
+    check(launched["moe_dispatch"] == 0, f"plain dispatch run launched {launched}")
+    for i, (got, want) in enumerate(zip(with_kernels, plain_dispatch)):
+        label = "prefill" if i == 0 else f"decode step {i}"
+        check(torch.equal(got, want), f"{label}: the moe_dispatch kernel and "
+              "its plain version give different logits with the same attention")
+    print(f"{cfg.name} depth {depth}: moe_dispatch kernel vs plain version, "
+          f"same attention: prefill and {steps} decode steps' logits equal bit "
+          "for bit")
+    # (b) every kernel against every plain version
+    plain, routes_p, launched = run(False)
+    check(sum(launched.values()) == 0, f"plain run launched {launched}")
+    # routing: one (N, k) record per MoE call, prefill's first
+    differ = [(a != b).any(dim=-1) for a, b in zip(routes_k, routes_p)]
+    n_choices = sum(x.numel() for x in differ)
+    n_flips = int(sum(int(x.sum()) for x in differ))
+    print(f"routing: {n_flips} of {n_choices} (token, layer) choices differ "
+          f"between kernels and plain versions")
+    check(n_flips <= ROUTING_FLIPS_MAX * n_choices,
+          f"{n_flips} of {n_choices} routing choices differ, over "
+          f"{ROUTING_FLIPS_MAX:.0%}")
+    atol, rtol = MODEL_TOL
+    for i, (got, want) in enumerate(zip(with_kernels, plain)):
+        label = "prefill" if i == 0 else f"decode step {i}"
+        # the MoE calls of this forward, one per layer
+        flips = torch.stack(differ[i * depth:(i + 1) * depth]).any(dim=0)
+        agreed = ~flips
+        ok, err = _close(got[0][agreed], want[0][agreed], atol, rtol)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"{label}: max |err| {err} over atol {atol} rtol {rtol} at the "
+              "positions whose routing agreed")
+        print(f"{cfg.name} depth {depth}, {label} logits {tuple(got.shape)}: "
+              f"routing agreed at {int(agreed.sum())} of {agreed.numel()} "
+              f"positions; there kernels vs plain max |err| {err!r} (atol "
+              f"{atol}, rtol {rtol}; max |logit| {float(want.abs().max())!r})")
+    del params
+
+
 def free_device_memory(device) -> None:
     """Return what the finished phases held to the card."""
     import gc
@@ -1067,6 +1398,18 @@ def main() -> None:
     served = phase_serving(device, MAMBA_ARCH, fixed=MAMBA_PROMPTS, phase="7")
     entries.append(phase_mamba_kernel(device, served))
     phase_model_kernels_vs_plain(device, MAMBA_ARCH, depth=4, phase="8b")
+    free_device_memory(device)
+    granite = phase_serving(device, GRANITE_ARCH, fixed=GRANITE_PROMPTS,
+                            phase="9")
+    moe_entry, flash_granite = phase_moe_kernel(device, granite)
+    entries.append(moe_entry)
+    phase_moe_model(device)
+    flash = next(e for e in entries if e["name"] == "flash_attention")
+    flash["launches_by_path"] = {SERVE_ARCH: flash["launches"],
+                                 GRANITE_ARCH: granite["flash_attention"]}
+    flash["launches"] += granite["flash_attention"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], flash_granite["max_abs_err"])
+    flash["granite_prefill"] = flash_granite
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,9 @@
   C++ in ``csrc/flash_attention.cu`` (local-attention prefill).
 * :mod:`repro_torch.kernels.mamba_scan` — ``mamba_scan``, CUDA C++ in
   ``csrc/mamba_scan.cu`` (the Mamba-1 selective scan, prefill and decode).
+* :mod:`repro_torch.kernels.moe_dispatch` — ``moe_dispatch``, CUDA C++ in
+  ``csrc/moe_dispatch.cu`` (the MoE layers' token scatter, prefill and
+  decode), and ``compute_slots``.
 * :mod:`repro_torch.kernels.rglru_scan` — ``rglru_scan``, CUDA C++ in
   ``csrc/rglru_scan.cu`` (the RG-LRU recurrence, prefill and decode).
 * :mod:`repro_torch.kernels.ref` — the plain PyTorch versions.
@@ -16,8 +19,9 @@
 from . import ops, ref
 from .flash_attention import flash_attention
 from .mamba_scan import mamba_scan
+from .moe_dispatch import compute_slots, moe_dispatch
 from .rglru_scan import rglru_scan
 from .segment_reduce import segment_sum
 
-__all__ = ["flash_attention", "mamba_scan", "ops", "ref", "rglru_scan",
-           "segment_sum"]
+__all__ = ["compute_slots", "flash_attention", "mamba_scan", "moe_dispatch",
+           "ops", "ref", "rglru_scan", "segment_sum"]

@@ -9,16 +9,20 @@ version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
+
+import torch
 
 from . import ref
 from .flash_attention import flash_attention
 from .mamba_scan import mamba_scan
+from .moe_dispatch import compute_slots, moe_dispatch
 from .rglru_scan import rglru_scan
 from .segment_reduce import segment_sum
 
-__all__ = ["attention", "gated_linear_recurrence", "sorted_segment_sum",
-           "ssm_scan"]
+__all__ = ["attention", "combine_tokens", "compute_slots",
+           "dispatch_at_slots", "dispatch_tokens", "gated_linear_recurrence",
+           "sorted_segment_sum", "ssm_scan"]
 
 
 def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
@@ -50,3 +54,29 @@ def sorted_segment_sum(values, segment_ids, num_segments: int,
     if use_kernel:
         return segment_sum(values, segment_ids, num_segments)
     return ref.segment_sum_ref(values, segment_ids, num_segments)
+
+
+def dispatch_at_slots(tokens, expert_ids, slot_ids, num_experts: int,
+                      capacity: int, use_kernel: bool = True) -> torch.Tensor:
+    """Scatter tokens into (E, C, D) buffers at the given slots: the MoE
+    layer's own slot ids (planned capacity, clamped slots) reach the
+    kernel through here."""
+    if use_kernel:
+        return moe_dispatch(tokens.contiguous(), expert_ids.int().contiguous(),
+                            slot_ids.int().contiguous(), num_experts, capacity)
+    return ref.moe_dispatch_ref(tokens, expert_ids, slot_ids, num_experts,
+                                capacity)
+
+
+def dispatch_tokens(tokens, expert_ids, num_experts: int, capacity: int,
+                    use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route tokens into (E, C, D) buffers; returns (buffers, slot_ids)."""
+    slots = compute_slots(expert_ids, num_experts)
+    return dispatch_at_slots(tokens, expert_ids, slots, num_experts, capacity,
+                             use_kernel=use_kernel), slots
+
+
+def combine_tokens(expert_out, expert_ids, slot_ids, gates, capacity: int):
+    """Inverse of dispatch: gather expert outputs back to token order."""
+    return ref.moe_combine_ref(expert_out, expert_ids, slot_ids, gates,
+                               capacity)

@@ -11,8 +11,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["attention_ref", "mamba_scan_ref", "rglru_scan_ref",
-           "segment_sum_ref"]
+__all__ = ["attention_ref", "mamba_scan_ref", "moe_combine_ref",
+           "moe_dispatch_ref", "rglru_scan_ref", "segment_sum_ref"]
 
 
 def attention_ref(
@@ -129,3 +129,56 @@ def segment_sum_ref(
                       dtype=torch.float32, device=values.device)
     out.index_add_(0, ids[keep], values[keep].float())
     return out.to(values.dtype)
+
+
+def _kept(expert_ids: torch.Tensor, slot_ids: torch.Tensor,
+          num_experts: int, capacity: int):
+    """(ids as int64, slots as int64, keep): a row is kept when its expert
+    id lies in ``[0, num_experts)`` and its slot in ``[0, capacity)``."""
+    e, s = expert_ids.long(), slot_ids.long()
+    keep = (e >= 0) & (e < num_experts) & (s >= 0) & (s < capacity)
+    return e, s, keep
+
+
+def moe_dispatch_ref(
+    tokens: torch.Tensor,  # (T, D)
+    expert_ids: torch.Tensor,  # (T,) integer
+    slot_ids: torch.Tensor,  # (T,) integer position within the expert buffer
+    num_experts: int,
+    capacity: int,
+) -> torch.Tensor:
+    """Scatter tokens into per-expert capacity buffers: out (E, C, D).
+
+    Row ``t`` is added into ``out[expert_ids[t], slot_ids[t]]``; rows whose
+    expert id lies outside ``[0, E)`` or whose slot lies outside ``[0, C)``
+    (capacity overflow) are dropped, as the TPU kernel drops them.  Rows
+    that share an (expert, slot) pair are summed.  Sums are taken in
+    float32 and cast back to the tokens' dtype.  Dropped rows are added
+    into a spare row past the buffers, so nothing waits for the host."""
+    T, D = tokens.shape
+    E, C = int(num_experts), int(capacity)
+    e, s, keep = _kept(expert_ids, slot_ids, E, C)
+    idx = torch.where(keep, e * C + s, E * C)
+    out = torch.zeros((E * C + 1, D), dtype=torch.float32,
+                      device=tokens.device)
+    out.index_add_(0, idx, tokens.float())
+    return out[:E * C].view(E, C, D).to(tokens.dtype)
+
+
+def moe_combine_ref(
+    expert_out: torch.Tensor,  # (E, C, D)
+    expert_ids: torch.Tensor,  # (T,)
+    slot_ids: torch.Tensor,  # (T,)
+    gates: torch.Tensor,  # (T,)
+    capacity: int,
+) -> torch.Tensor:
+    """Gather per-expert outputs back to token order, weighted by gate: row
+    ``t`` is ``expert_out[expert_ids[t], slot_ids[t]] · gates[t]``, taken in
+    float32 and cast to ``expert_out``'s dtype; a row that dispatch dropped
+    gives 0."""
+    E = expert_out.shape[0]
+    e, s, keep = _kept(expert_ids, slot_ids, E, capacity)
+    gathered = expert_out[torch.where(keep, e, 0), torch.where(keep, s, 0)]
+    w = torch.where(keep, gates, torch.zeros((), dtype=gates.dtype,
+                                             device=gates.device))
+    return (gathered.float() * w[:, None]).to(expert_out.dtype)

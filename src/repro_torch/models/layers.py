@@ -1,7 +1,7 @@
 """Model layers on torch: norms, RoPE, attention (GQA / qk-norm / sliding
-window / NoPE, int8 decode cache), SwiGLU & GeGLU MLPs, the Mamba-1 block
-and the RG-LRU block — the parts of :mod:`repro.models.layers` that the
-serving slices run.
+window / NoPE, int8 decode cache), SwiGLU & GeGLU MLPs, the capacity-dropped
+MoE FFN, the Mamba-1 block and the RG-LRU block — the parts of
+:mod:`repro.models.layers` that the serving slices run.
 
 Layers are functions over parameter dicts with the reference's names and
 tensor layouts.  Matrix products follow jax's type promotion: a float32
@@ -16,6 +16,9 @@ Attention picks one of three evaluation strategies, as the reference does:
 * ``chunked`` — a plain online-softmax loop over (q, kv) blocks, what
   ``use_kernel=False`` takes above ``_DENSE_LOGITS_LIMIT``;
 * ``kernel`` — the Hopper flash kernel (:mod:`repro_torch.kernels`).
+
+The MoE FFN scatters its tokens through the Hopper ``moe_dispatch`` kernel
+with ``use_kernel=True``, at the reference's own slots.
 """
 from __future__ import annotations
 
@@ -319,6 +322,109 @@ def mlp_fwd(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     g = _ein("btd,df->btf", x, p["w_gate"])
     u = _ein("btd,df->btf", x, p["w_up"])
     return _ein("btf,fd->btd", _act(cfg, g) * u, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-dropped, optionally geo-planned; one device)
+# ---------------------------------------------------------------------------
+
+def _pad_experts(cfg: ArchConfig, tp: int) -> int:
+    """Experts padded up to a multiple of the TP degree (zero router mass)."""
+    E = cfg.n_experts
+    return -(-E // tp) * tp
+
+
+def init_moe(cfg: ArchConfig, gen: torch.Generator, stack: Stack = (),
+             dtype: torch.dtype = torch.float32, tp: int = 1) -> Params:
+    d, f, s = cfg.d_model, cfg.expert_d_ff_, tuple(stack)
+    Ep = _pad_experts(cfg, tp)
+    live = torch.arange(Ep, device=gen.device) < cfg.n_experts
+    return {
+        "router": _dense_init(gen, s + (d, Ep), d, dtype),
+        "w_gate": _dense_init(gen, s + (Ep, d, f), d, dtype),
+        "w_up": _dense_init(gen, s + (Ep, d, f), d, dtype),
+        "w_down": _dense_init(gen, s + (Ep, f, d), f, dtype),
+        # the planned per-expert router bias and capacity fractions: identity
+        # by default; padding experts carry a -1e9 bias and never win
+        "plan_bias": torch.where(live, 0.0, -1e9).expand(s + (Ep,))
+                          .to(dtype).clone(),
+        "plan_capacity": torch.ones(s + (Ep,), device=gen.device, dtype=dtype),
+    }
+
+
+def route(cfg: ArchConfig, p: Params, x2d: torch.Tensor):
+    """The router: (float32 gates over all experts (N, E), the top-k gates
+    renormalized (N, k), their expert ids (N, k)).  Ties go to the lower
+    expert id, as ``jax.lax.top_k`` breaks them: a stable descending sort,
+    then the first k (``torch.topk`` promises no order among ties, and in
+    bfloat16 the router logits tie often)."""
+    logits = _ein("nd,de->ne", x2d, p["router"]) + p["plan_bias"]
+    gates_all = torch.softmax(logits.float(), dim=-1)
+    ordered, order = torch.sort(gates_all, dim=-1, descending=True, stable=True)
+    top_gates, top_ids = ordered[:, :cfg.top_k], order[:, :cfg.top_k]
+    top_gates = top_gates / torch.clamp(top_gates.sum(dim=-1, keepdim=True),
+                                        min=1e-9)
+    return gates_all, top_gates, top_ids
+
+
+def _moe_local(cfg: ArchConfig, p: Params, x2d: torch.Tensor,
+               use_kernel: bool = False):
+    """Token dispatch + expert FFN over all experts on one device, line for
+    line the reference's.  x2d: (N, d) tokens.  Returns (y (N, d), aux).
+
+    The reference scatters into the expert buffers itself; here the scatter
+    is the ``moe_dispatch`` kernel (``use_kernel=True``) or its plain
+    version, at slot ``min(slot, C-1)`` for a kept token and slot C, which
+    both drop, for a dropped one: the reference's numbers, including a
+    planned capacity above C, where kept tokens add into slot C-1."""
+    N, d = x2d.shape
+    E_here, k = p["w_gate"].shape[0], cfg.top_k
+    gates_all, top_gates, top_ids = route(cfg, p, x2d)
+    # load-balance aux loss (Switch): E * Σ_e f_e · P_e
+    pe = gates_all.mean(dim=0)
+    flat_ids = top_ids.reshape(-1)  # (N*k,)
+    fe = torch.zeros((E_here,), device=x2d.device).index_add_(
+        0, flat_ids, torch.ones((N * k,), device=x2d.device) / (N * k))
+    aux = E_here * torch.sum(pe * fe)
+
+    cap = p["plan_capacity"][:E_here]
+    C = int(np.ceil(N * k / E_here * cfg.capacity_factor))
+    C = max(C, k)
+    slots = kops.compute_slots(flat_ids, E_here)
+    # planned capacity: expert e accepts plan_capacity[e] * C tokens (in the
+    # parameters' dtype, as the reference rounds it)
+    cap_e = torch.clamp(torch.round(cap * C), min=1).to(torch.int32)
+    keep = slots < cap_e[flat_ids]
+    slot_ids = torch.where(keep, torch.clamp(slots, max=C - 1), C).int()
+    expert_ids = flat_ids.int()
+    tokens = x2d.repeat_interleave(k, dim=0)  # row n*k + j is token n
+    buf = kops.dispatch_at_slots(tokens, expert_ids, slot_ids, E_here, C,
+                                 use_kernel=use_kernel)
+    h = _act(cfg, _ein("ecd,edf->ecf", buf, p["w_gate"]))
+    h = h * _ein("ecd,edf->ecf", buf, p["w_up"])
+    out = _ein("ecf,efd->ecd", h, p["w_down"])
+    back = kops.combine_tokens(out, expert_ids, slot_ids,
+                               top_gates.reshape(-1), C).to(x2d.dtype)
+    # each token's k gated rows, added in a fixed order in x's dtype (an
+    # index_add would add them in atomic order on the card)
+    back = back.view(N, k, d)
+    y = back[:, 0]
+    for j in range(1, k):
+        y = y + back[:, j]
+    return y, aux
+
+
+def moe_fwd(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh=None,
+            use_kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-device MoE: every token dispatched over all experts.
+    Returns (y (B, T, d), aux_loss)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "expert-parallel MoE over a mesh is not ported: ROADMAP.md queue "
+            "1, item 11 (multi-GPU)")
+    B, T, d = x.shape
+    y2d, aux = _moe_local(cfg, p, x.reshape(B * T, d), use_kernel=use_kernel)
+    return y2d.reshape(B, T, d), aux
 
 
 # ---------------------------------------------------------------------------

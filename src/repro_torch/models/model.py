@@ -12,6 +12,7 @@ Public entry points:
 * ``init(cfg, generator, device, dtype)``          → params
 * ``cast_params(params, dtype, device)``           → params in the compute dtype
 * ``forward(cfg, params, batch, ...)``             → logits, cache, aux
+  (aux: the MoE blocks' load-balance losses summed, 0 without MoE)
 * ``init_cache(cfg, B, max_len, dtype, ...)``      → cache
 * ``prefill(cfg, params, batch, max_cache_len, ...)`` → logits, cache, aux
 * ``decode_step(cfg, params, batch, cache, ...)``  → logits, cache, aux
@@ -21,7 +22,7 @@ float32 group parameter and the embedding to ``compute_dtype`` on every
 call, the port casts once (:func:`init` with ``dtype=``, or
 :func:`cast_params`), which gives the same numbers.  ``final_norm`` stays
 float32, as the reference leaves it.  Decode updates the cache in place.
-MoE FFNs wait for their slice of the port.
+MoE FFNs run on one device (no expert parallelism over a mesh).
 """
 from __future__ import annotations
 
@@ -34,12 +35,6 @@ from . import layers as L
 from .config import ArchConfig, Block
 
 Params = Dict[str, Any]
-
-#: the parts of the reference stack that later slices of the port bring
-_TODO = {
-    "moe": "MoE FFNs (_moe_local, moe_dispatch) are not ported yet: "
-           "ROADMAP.md queue 1, item 11b (granite-moe-3b-a800m)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -62,7 +57,7 @@ def _init_block(cfg: ArchConfig, blk: Block, gen: torch.Generator, stack,
         if blk.ffn == "dense":
             p["ffn"] = L.init_mlp(cfg, gen, stack, dtype)
         elif blk.ffn == "moe":
-            raise NotImplementedError(_TODO["moe"])
+            p["ffn"] = L.init_moe(cfg, gen, stack, dtype)
         else:
             raise ValueError(blk.ffn)
     return p
@@ -186,8 +181,7 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int,
 
 def _block_fwd(cfg, blk: Block, p: Params, x, positions, cache, mode,
                use_kernels, max_cache_len):
-    if blk.ffn == "moe":
-        raise NotImplementedError(_TODO["moe"])
+    """One block → (x, new cache, the MoE aux loss or ``None``)."""
     h = L.apply_norm(cfg, p["norm1"], x)
     if blk.mixer == "attn":
         y, new_cache = L.attention_fwd(
@@ -211,11 +205,16 @@ def _block_fwd(cfg, blk: Block, p: Params, x, positions, cache, mode,
     else:
         raise ValueError(blk.mixer)
     x = x + y
+    aux = None
     if blk.ffn == "dense":
         x = x + L.mlp_fwd(cfg, p["ffn"], L.apply_norm(cfg, p["norm2"], x))
+    elif blk.ffn == "moe":
+        y, aux = L.moe_fwd(cfg, p["ffn"], L.apply_norm(cfg, p["norm2"], x),
+                           use_kernel=use_kernels)
+        x = x + y
     elif blk.ffn != "none":
         raise ValueError(blk.ffn)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _write_back(dst: Dict, new: Optional[Dict]) -> None:
@@ -257,6 +256,7 @@ def forward(
     positions = positions.to(x.device).expand(B, T)
 
     stacked: Dict[str, list] = {f"blk{i}": [] for i in range(len(cfg.pattern))}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
         for i, blk in enumerate(cfg.pattern):
             name = f"blk{i}"
@@ -264,8 +264,10 @@ def forward(
             c = None
             if mode == "decode":
                 c = {k: v[g] for k, v in cache[name].items()}
-            x, nc = _block_fwd(cfg, blk, gp, x, positions, c, mode,
-                               use_kernels, max_cache_len)
+            x, nc, aux_b = _block_fwd(cfg, blk, gp, x, positions, c, mode,
+                                      use_kernels, max_cache_len)
+            if aux_b is not None:
+                aux = aux + aux_b
             if mode == "decode":
                 _write_back(c, nc)
             elif nc is not None:
@@ -284,8 +286,11 @@ def forward(
         for i, blk in enumerate(cfg.tail):
             name = f"blk{i}"
             c = cache["tail"][name] if mode == "decode" else None
-            x, nc = _block_fwd(cfg, blk, params["tail"][name], x, positions,
-                               c, mode, use_kernels, max_cache_len)
+            x, nc, aux_b = _block_fwd(cfg, blk, params["tail"][name], x,
+                                      positions, c, mode, use_kernels,
+                                      max_cache_len)
+            if aux_b is not None:
+                aux = aux + aux_b
             if mode == "decode":
                 _write_back(c, nc)
             elif nc is not None:
@@ -302,7 +307,6 @@ def forward(
     if cfg.vocab_real is not None and cfg.vocab_real < cfg.vocab:
         # TP-padded vocab rows must never win a softmax (exact semantics)
         logits[..., cfg.vocab_real:] = -1e9
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, new_cache, aux
 
 

@@ -14,9 +14,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
+from repro_torch.kernels.moe_dispatch import compute_slots, moe_dispatch  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref, mamba_scan_ref,  # noqa: E402
-                                     rglru_scan_ref, segment_sum_ref)
+                                     moe_dispatch_ref, rglru_scan_ref,
+                                     segment_sum_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_sum  # noqa: E402
 from repro_torch.mapreduce.apps import word_count  # noqa: E402
@@ -394,6 +397,139 @@ def test_falcon_mamba_engine_on_the_card_matches_the_plain_versions(card):
     outputs = {}
     for use_kernels in (True, False):
         eng = ServeEngine(cfg, params, ServeConfig(slots=2, max_len=64,
+                                                   use_kernels=use_kernels))
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        outputs[use_kernels] = [r.output for r in reqs]
+    assert outputs[True] == outputs[False]
+
+
+# ---------------------------------------------------------------------------
+# moe_dispatch and the Granite-MoE path
+# ---------------------------------------------------------------------------
+
+def _moe_inputs(T, D, E, C, pairs, dtype, device, seed=0):
+    """Tokens, expert ids and slots.  ``unique``: slots from compute_slots,
+    rows past C given slot C (dropped), so every kept pair is unique;
+    ``repeated``: the MoE layer's rule where its capacity exceeds C by 2,
+    as the bfloat16 plan capacity of 1.0 makes it at Granite's prefill
+    (bf16(750) = 752), so up to 3 rows share slot C-1; ``out_of_range``:
+    ids and slots on both sides of their ranges."""
+    rng = np.random.default_rng(seed)
+    tokens = _normal((T, D), seed, device, dtype)
+    load = rng.dirichlet(np.full(E, 2.0))  # skewed: some experts overflow
+    ids = torch.from_numpy(rng.choice(E, size=T, p=load).astype(np.int32))
+    slots = compute_slots(ids, E)
+    if pairs == "unique":
+        slots = torch.where(slots < C, slots, C)
+    elif pairs == "repeated":
+        slots = torch.where(slots < C + 2, slots.clamp(max=C - 1), C)
+    else:
+        ids = torch.from_numpy(rng.integers(-2, E + 2, size=T).astype(np.int32))
+        slots = torch.from_numpy(rng.integers(-2, C + 2, size=T).astype(np.int32))
+    return tokens, ids.int().to(device), slots.int().to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D,E,C,pairs", [
+    (24_000, 1536, 40, 750, "unique"),  # Granite's 3000-token prefill
+    (32, 1536, 40, 8, "unique"),  # its 4-slot decode step
+    (24_000, 1536, 40, 750, "repeated"),
+    (200, 64, 8, 16, "unique"),
+    (333, 33, 5, 20, "repeated"),  # D no multiple of the vector width
+    (500, 24, 6, 30, "out_of_range"),
+])
+def test_moe_dispatch_matches_plain_version(card, dtype, T, D, E, C, pairs):
+    """Unique pairs: one float32 add onto zero per element, so the kernel
+    equals the plain version bit for bit.  Repeated pairs: float32 atomics
+    add a pair's rows in an order that changes from run to run, so the sums
+    differ in their last float32 bits and a bfloat16 output may round to
+    the neighbouring value (TOL)."""
+    tokens, ids, slots = _moe_inputs(T, D, E, C, pairs, dtype, card)
+    before = moe_dispatch.launches
+    got = moe_dispatch(tokens, ids, slots, E, C)
+    torch.cuda.synchronize()
+    assert moe_dispatch.launches == before + 1
+    want = moe_dispatch_ref(tokens, ids, slots, E, C)
+    assert got.dtype == tokens.dtype and tuple(got.shape) == (E, C, D)
+    if pairs == "unique":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_moe_dispatch_wrapper_raises(card):
+    t = torch.zeros(8, 16, device=card)
+    i = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="expert_ids dtype"):
+        moe_dispatch(t, i.long(), i, 2, 4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        moe_dispatch(t.double(), i, i, 2, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_dispatch(t[::2], i[::2], i[::2], 2, 4)
+    with pytest.raises(ValueError, match=r"\(T, D\)"):
+        moe_dispatch(t[:, 0], i, i, 2, 4)
+    with pytest.raises(ValueError, match="slot_ids on cpu"):
+        moe_dispatch(t, i, i.cpu(), 2, 4)
+    with pytest.raises(ValueError, match="slot_ids must be"):
+        moe_dispatch(t, i, i[:4], 2, 4)
+
+
+def _granite_runs(card, params, cfg, toks, use_kernels):
+    """Prefill and three decode steps of the reduced Granite: logits, and
+    the (flash_attention, moe_dispatch) launches."""
+    before = (flash_attention.launches, moe_dispatch.launches)
+    logits, cache, _ = M.prefill(cfg, params, {"tokens": toks},
+                                 max_cache_len=64, use_kernels=use_kernels)
+    outs = [logits]
+    for i in range(3):
+        batch = {"tokens": toks[:, i:i + 1],
+                 "positions": torch.full((2, 1), 40 + i, device=card)}
+        outs.append(M.decode_step(cfg, params, batch, cache,
+                                  use_kernels=use_kernels)[0])
+    torch.cuda.synchronize()
+    return outs, (flash_attention.launches - before[0],
+                  moe_dispatch.launches - before[1])
+
+
+def test_granite_path_runs_the_kernels(card, monkeypatch):
+    """The reduced Granite-MoE in float32: prefill and three decode steps
+    launch flash_attention once per layer in prefill and moe_dispatch once
+    per layer and call (2 layers × 4).  With the same attention, the plain
+    dispatch gives the same logits bit for bit (unique pairs: C = 2·T·k/E
+    rounds up, plan_capacity is 1); kernels against plain versions agree
+    to atol/rtol 1e-4 (float32 attention sums in another order)."""
+    cfg = ARCHS["granite-moe-3b-a800m"].reduced()
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = M.init(cfg, gen, device=card)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 40))).to(card)
+    kernels, launched = _granite_runs(card, params, cfg, toks, True)
+    assert launched == (2, 2 * 4)
+    plain, launched = _granite_runs(card, params, cfg, toks, False)
+    assert launched == (0, 0)
+    for got, want in zip(kernels, plain):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    monkeypatch.setattr(ops, "moe_dispatch", ref.moe_dispatch_ref)
+    same_attention, launched = _granite_runs(card, params, cfg, toks, True)
+    assert launched == (2, 0)
+    for got, want in zip(kernels, same_attention):
+        assert torch.equal(got, want)
+
+
+def test_granite_engine_on_the_card_matches_the_plain_versions(card):
+    cfg = ARCHS["granite-moe-3b-a800m"].reduced()
+    gen = torch.Generator(device=card).manual_seed(1)
+    params = M.init(cfg, gen, device=card)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (1, 40, 17, 5)]
+    outputs = {}
+    for use_kernels in (True, False):
+        eng = ServeEngine(cfg, params, ServeConfig(slots=3, max_len=64,
                                                    use_kernels=use_kernels))
         reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
                 for i, p in enumerate(prompts)]

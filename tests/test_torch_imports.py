@@ -50,6 +50,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.core.optimize" in modules
     assert "repro_torch.kernels.segment_reduce" in modules
     assert "repro_torch.kernels.mamba_scan" in modules
+    assert "repro_torch.kernels.moe_dispatch" in modules
     assert "repro_torch.serve.engine" in modules
     assert "repro_torch.launch.serve" in modules
     script = f"""

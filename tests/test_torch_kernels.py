@@ -1,5 +1,6 @@
 """The port's kernels' plain PyTorch versions (``segment_sum``,
-``flash_attention``, ``mamba_scan``, ``rglru_scan``) against the reference's Pallas
+``flash_attention``, ``mamba_scan``, ``rglru_scan``, ``moe_dispatch`` with
+``compute_slots`` and the combine) against the reference's Pallas
 kernels (interpret mode on the CPU) and jnp oracles, and the CPU dispatch
 of the wrappers and the ops layer.  The Hopper kernels themselves are held
 against the plain versions in ``test_torch_cuda.py``."""
@@ -12,13 +13,18 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as rref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_attention  # noqa: E402
+from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels.mamba_scan import mamba_scan as pallas_mamba  # noqa: E402
+from repro.kernels.moe_dispatch import compute_slots as ref_compute_slots  # noqa: E402
+from repro.kernels.moe_dispatch import moe_dispatch as pallas_moe  # noqa: E402
 from repro.kernels.rglru_scan import rglru_scan as pallas_rglru  # noqa: E402
 from repro.kernels.segment_reduce import segment_sum as pallas_segment_sum  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
+from repro_torch.kernels.moe_dispatch import compute_slots, moe_dispatch  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref, mamba_scan_ref,  # noqa: E402
+                                     moe_combine_ref, moe_dispatch_ref,
                                      rglru_scan_ref, segment_sum_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_sum  # noqa: E402
@@ -278,3 +284,160 @@ def test_mamba_scan_on_cpu_takes_the_plain_version():
         torch.testing.assert_close(y, wy, atol=0.0, rtol=0.0)
         torch.testing.assert_close(h, wh, atol=0.0, rtol=0.0)
     assert mamba_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch and combine
+# ---------------------------------------------------------------------------
+
+#: (T, D, E, C): the reference kernel tests' shapes (tests/test_kernels.py)
+MOE_CASES = [(128, 32, 4, 40), (200, 64, 8, 16), (64, 16, 3, 64)]
+
+
+def _moe_inputs(T, D, E, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(T, D)).astype(np.float32),
+            rng.integers(0, E, size=T).astype(np.int32))
+
+
+def _pallas_moe(tokens, ids, slots, E, C, dtype="float32", block_t=48):
+    """The reference's Pallas kernel (interpret mode) as float32 numpy."""
+    out = pallas_moe(jnp.asarray(tokens, getattr(jnp, dtype)), jnp.asarray(ids),
+                     jnp.asarray(slots), E, C, block_t=block_t)
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("T,D,E,C", MOE_CASES)
+def test_compute_slots_matches_reference(T, D, E, C):
+    _, ids = _moe_inputs(T, D, E)
+    want = np.asarray(ref_compute_slots(jnp.asarray(ids), E))
+    got = compute_slots(torch.from_numpy(ids), E)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D,E,C", MOE_CASES)
+def test_moe_dispatch_plain_version_matches_reference(T, D, E, C, dtype):
+    """Against the reference's plain version and its Pallas kernel, at slots
+    from ``compute_slots`` (capacity overflow drops at the 200-token
+    case).  Unique pairs: each kept row lands once, so the outputs are
+    equal, not merely close."""
+    tokens, ids = _moe_inputs(T, D, E)
+    slots = np.array(ref_compute_slots(jnp.asarray(ids), E))
+    jt = jnp.asarray(tokens, getattr(jnp, dtype))
+    oracle = np.asarray(rref.moe_dispatch_ref(jt, jnp.asarray(ids),
+                                              jnp.asarray(slots), E, C)
+                        .astype(jnp.float32))
+    pallas = _pallas_moe(tokens, ids, slots, E, C, dtype)
+    tt = torch.from_numpy(tokens).to(getattr(torch, dtype))
+    got = moe_dispatch_ref(tt, torch.from_numpy(ids), torch.from_numpy(slots),
+                           E, C)
+    assert got.dtype == tt.dtype and tuple(got.shape) == (E, C, D)
+    for want in (oracle, pallas):
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_moe_capacity_overflow_drops():
+    """All tokens to expert 0 with capacity 4: only the first 4 survive."""
+    tokens = torch.arange(80, dtype=torch.float32).reshape(8, 10)
+    ids = torch.zeros(8, dtype=torch.int32)
+    slots = compute_slots(ids, 2)
+    out = moe_dispatch_ref(tokens, ids, slots, 2, 4)
+    torch.testing.assert_close(out[0], tokens[:4], atol=0.0, rtol=0.0)
+    assert float(out[1].abs().sum()) == 0.0
+    pallas = _pallas_moe(tokens.numpy(), ids.numpy(), slots.numpy(), 2, 4,
+                         block_t=8)
+    np.testing.assert_array_equal(out.numpy(), pallas)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_duplicate_pairs_are_summed(dtype):
+    """Rows that share an (expert, slot) pair add up, in float32 then cast,
+    as the TPU kernel's one-hot product adds them: the MoE layer's clamped
+    slots at a planned capacity above C repeat pairs."""
+    rng = np.random.default_rng(4)
+    T, D, E, C = 96, 16, 3, 5
+    tokens = rng.normal(size=(T, D)).astype(np.float32)
+    ids = rng.integers(0, E, size=T).astype(np.int32)
+    slots = rng.integers(0, C, size=T).astype(np.int32)  # ~6 rows per pair
+    tt = torch.from_numpy(tokens).to(getattr(torch, dtype))
+    got = moe_dispatch_ref(tt, torch.from_numpy(ids), torch.from_numpy(slots),
+                           E, C).float().numpy()
+    pallas = _pallas_moe(tokens, ids, slots, E, C, dtype)
+    want = np.zeros((E, C, D), np.float64)
+    np.add.at(want, (ids, slots), tt.float().numpy())
+    np.testing.assert_allclose(got, pallas, **TOL[dtype])
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+
+
+def test_moe_out_of_range_ids_and_slots_are_dropped():
+    """Expert ids outside [0, E) and slots outside [0, C), negative ones
+    included, are dropped, as the TPU kernel drops them (the reference's
+    plain version wraps negative indices; its kernel does not)."""
+    rng = np.random.default_rng(5)
+    T, D, E, C = 120, 8, 4, 6
+    tokens = rng.normal(size=(T, D)).astype(np.float32)
+    ids = rng.integers(-2, E + 2, size=T).astype(np.int32)
+    slots = rng.integers(-2, C + 2, size=T).astype(np.int32)
+    got = moe_dispatch_ref(torch.from_numpy(tokens), torch.from_numpy(ids),
+                           torch.from_numpy(slots), E, C).numpy()
+    np.testing.assert_allclose(got, _pallas_moe(tokens, ids, slots, E, C),
+                               **TOL["float32"])
+    kept = (ids >= 0) & (ids < E) & (slots >= 0) & (slots < C)
+    want = np.zeros((E, C, D), np.float64)
+    np.add.at(want, (ids[kept], slots[kept]), tokens[kept])
+    np.testing.assert_allclose(got, want, **TOL["float32"])
+
+
+@pytest.mark.parametrize("T,D,E,C", MOE_CASES)
+def test_moe_combine_plain_version_matches_reference(T, D, E, C):
+    tokens, ids = _moe_inputs(T, D, E, seed=6)
+    rng = np.random.default_rng(7)
+    expert_out = rng.normal(size=(E, C, D)).astype(np.float32)
+    gates = rng.uniform(size=T).astype(np.float32)
+    slots = np.array(ref_compute_slots(jnp.asarray(ids), E))
+    want = rref.moe_combine_ref(jnp.asarray(expert_out), jnp.asarray(ids),
+                                jnp.asarray(slots), jnp.asarray(gates), C)
+    got = moe_combine_ref(torch.from_numpy(expert_out), torch.from_numpy(ids),
+                          torch.from_numpy(slots), torch.from_numpy(gates), C)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_moe_dispatch_combine_round_trip():
+    """dispatch → identity expert → combine gives the gated tokens back
+    (capacity ample: no drops)."""
+    T, D, E, C = 96, 16, 4, 96
+    tokens, ids = _moe_inputs(T, D, E, seed=3)
+    gates = torch.sigmoid(torch.from_numpy(_normal((T,), 8)))
+    t, i = torch.from_numpy(tokens), torch.from_numpy(ids)
+    buf, slots = ops.dispatch_tokens(t, i, E, C)
+    back = ops.combine_tokens(buf, i, slots, gates, C)
+    torch.testing.assert_close(back, t * gates[:, None], atol=1e-6, rtol=1e-6)
+
+
+def test_dispatch_tokens_matches_the_reference_kernel_path():
+    """``ops.dispatch_tokens`` against the reference's, which at 128 tokens
+    runs its Pallas kernel (interpret mode): the same buffers and slots."""
+    T, D, E, C = 128, 32, 4, 24  # expert loads of ~32 > C: drops
+    tokens, ids = _moe_inputs(T, D, E, seed=9)
+    want_buf, want_slots = rops.dispatch_tokens(jnp.asarray(tokens),
+                                                jnp.asarray(ids), E, C)
+    buf, slots = ops.dispatch_tokens(torch.from_numpy(tokens),
+                                     torch.from_numpy(ids), E, C)
+    np.testing.assert_array_equal(slots.numpy(), np.asarray(want_slots))
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(want_buf))
+
+
+def test_moe_dispatch_on_cpu_takes_the_plain_version():
+    tokens, ids = _moe_inputs(40, 8, 3, seed=10)
+    t, i = torch.from_numpy(tokens), torch.from_numpy(ids)
+    slots = compute_slots(i, 3)
+    before = moe_dispatch.launches
+    want = moe_dispatch_ref(t, i, slots, 3, 10)
+    for out in (moe_dispatch(t, i, slots, 3, 10),
+                ops.dispatch_at_slots(t, i, slots, 3, 10),
+                ops.dispatch_at_slots(t, i, slots, 3, 10, use_kernel=False),
+                ops.dispatch_tokens(t, i, 3, 10)[0]):
+        torch.testing.assert_close(out, want, atol=0.0, rtol=0.0)
+    assert moe_dispatch.launches == before

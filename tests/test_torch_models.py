@@ -7,6 +7,8 @@ runs its plain path (``use_kernels=False``) and the port its plain
 versions.  Tolerance: atol 1e-4, rtol 1e-4 — float32 sums taken in another
 order by the two frameworks' CPU kernels, over a few layers.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -29,9 +31,11 @@ CPU = torch.device("cpu")
 
 #: RecurrentGemma (RG-LRU + local attention + tail), qwen3 (qk-norm, tied
 #: embeddings, GQA), stablelm (layernorm, MHA), olmo (non-parametric LN),
-#: Falcon-Mamba (Mamba-1 mixers only, untied embeddings)
+#: Falcon-Mamba (Mamba-1 mixers only, untied embeddings), Granite-MoE
+#: (GQA attention + capacity-dropped top-k MoE FFN, tied embeddings)
 ARCH_NAMES = ["recurrentgemma-9b", "qwen3-1.7b", "stablelm-1.6b", "olmo-1b",
-              "falcon-mamba-7b"]
+              "falcon-mamba-7b", "granite-moe-3b-a800m"]
+GRANITE = "granite-moe-3b-a800m"
 
 
 def _np_tree(tree):
@@ -80,11 +84,15 @@ def _x(shape, seed=0):
 # ---------------------------------------------------------------------------
 
 def test_forward_logits_match(pair):
+    """Logits and the aux loss (the MoE blocks' load-balance losses summed;
+    0 without MoE)."""
     rcfg, pcfg, rparams, pparams = pair
     toks = _tokens(rcfg.vocab, 2, 12)
-    want, _, _ = RM.forward(rcfg, rparams, {"tokens": jnp.asarray(toks)})
+    want, _, want_aux = RM.forward(rcfg, rparams, {"tokens": jnp.asarray(toks)})
     got, cache, aux = M.forward(pcfg, pparams, {"tokens": torch.from_numpy(toks)})
-    assert cache is None and float(aux) == 0.0
+    assert cache is None and aux.dtype == torch.float32 and aux.dim() == 0
+    _assert_close(aux, want_aux)
+    assert (float(aux) > 0.0) == (pcfg.n_experts > 0)
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, 12, rcfg.vocab)
     _assert_close(got, want)
 
@@ -95,23 +103,25 @@ def test_prefill_then_decode_match(pair):
     rcfg, pcfg, rparams, pparams = pair
     B, T, max_len = 2, 10, 24
     toks = _tokens(rcfg.vocab, B, T, seed=1)
-    rl, rcache, _ = RM.prefill(rcfg, rparams, {"tokens": jnp.asarray(toks)},
-                               max_cache_len=max_len)
-    pl, pcache, _ = M.prefill(pcfg, pparams, {"tokens": torch.from_numpy(toks)},
-                              max_cache_len=max_len)
+    rl, rcache, raux = RM.prefill(rcfg, rparams, {"tokens": jnp.asarray(toks)},
+                                  max_cache_len=max_len)
+    pl, pcache, paux = M.prefill(pcfg, pparams, {"tokens": torch.from_numpy(toks)},
+                                 max_cache_len=max_len)
     _assert_close(pl, rl)
+    _assert_close(paux, raux)
     _assert_tree_close(pcache, _np_tree(rcache))
     nxt = np.asarray(jnp.argmax(rl[:, -1], axis=-1)).astype(np.int32)[:, None]
     for step in range(3):
         pos = np.full((B, 1), T + step, np.int32)
-        rl, rcache, _ = RM.decode_step(
+        rl, rcache, raux = RM.decode_step(
             rcfg, rparams, {"tokens": jnp.asarray(nxt), "positions": jnp.asarray(pos)},
             rcache)
-        pl, same, _ = M.decode_step(
+        pl, same, paux = M.decode_step(
             pcfg, pparams, {"tokens": torch.from_numpy(nxt),
                             "positions": torch.from_numpy(pos)}, pcache)
         assert same is pcache  # updated in place
         _assert_close(pl, rl)
+        _assert_close(paux, raux)
         _assert_tree_close(pcache, _np_tree(rcache))
         nxt = np.asarray(jnp.argmax(rl[:, -1], axis=-1)).astype(np.int32)[:, None]
 
@@ -168,18 +178,6 @@ def test_init_matches_the_reference_tree():
 
         walk(got)
         assert flat_got == {k: tuple(v) for k, v in flat_want.items()}, name
-
-
-def test_unported_mixers_raise():
-    for name in ("granite-moe-3b-a800m",):
-        cfg = ARCHS[name].reduced()
-        gen = torch.Generator(device="cpu").manual_seed(0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init(cfg, gen, device=CPU)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M._block_fwd(cfg, cfg.pattern[0], {}, torch.zeros(1, 2, cfg.d_model),
-                         torch.zeros(1, 2, dtype=torch.long), None, "train",
-                         False, None)
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +303,7 @@ def test_rope_matches():
                   atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-9b", "qwen3-1.7b"])
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "qwen3-1.7b", GRANITE])
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode", "decode_int8"])
 def test_attention_fwd_matches(name, mode):
     rcfg, pcfg = REF_ARCHS[name].reduced(), ARCHS[name].reduced()
@@ -377,3 +375,148 @@ def test_long_prefill_takes_the_chunked_path(monkeypatch):
     chunked, _ = L.attention_fwd(pcfg, blk, p, x, pos)
     assert calls == [1]
     torch.testing.assert_close(chunked, dense, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# MoE (Granite)
+# ---------------------------------------------------------------------------
+
+def _granite_cfgs():
+    return REF_ARCHS[GRANITE].reduced(), ARCHS[GRANITE].reduced()
+
+
+def _moe_params(rcfg, seed, plan_capacity=1.0):
+    rp = RL.init_moe(rcfg, jax.random.PRNGKey(seed))
+    rp = dict(rp, plan_capacity=jnp.full_like(rp["plan_capacity"], plan_capacity))
+    return rp, {k: _t(v) for k, v in _np_tree(rp).items()}
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("plan_capacity", [1.0, 0.5, 1.5])
+def test_moe_local_matches(plan_capacity, use_kernel):
+    """``_moe_local`` output and aux loss against the reference's.  At 24
+    tokens C = 8: plan_capacity 0.5 drops every token past slot 3 of its
+    expert; 1.5 keeps up to 12 a expert and adds slots 8-11 into slot 7.
+    On the CPU ``use_kernel=True`` takes the plain version."""
+    rcfg, pcfg = _granite_cfgs()
+    rp, pp = _moe_params(rcfg, 20, plan_capacity)
+    x = _x((24, rcfg.d_model), seed=21)
+    want, want_aux = RL._moe_local(rcfg, rp, jnp.asarray(x))
+    got, aux = L._moe_local(pcfg, pp, torch.from_numpy(x), use_kernel=use_kernel)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (24, rcfg.d_model)
+    _assert_close(got, want)
+    _assert_close(aux, want_aux)
+
+
+def test_moe_local_capacities_drop_and_repeat_pairs(monkeypatch):
+    """The slots that reach the dispatch: at plan_capacity 0.5 some tokens
+    are dropped (slot C), at 1.5 some kept ones share slot C-1."""
+    rcfg, pcfg = _granite_cfgs()
+    x = torch.from_numpy(_x((24, rcfg.d_model), seed=21))
+    seen = {}
+    real = L.kops.dispatch_at_slots
+
+    def spy(tokens, ids, slots, E, C, use_kernel=True):
+        seen["slots"], seen["C"] = slots.clone(), C
+        return real(tokens, ids, slots, E, C, use_kernel=use_kernel)
+
+    monkeypatch.setattr(L.kops, "dispatch_at_slots", spy)
+    for cap, dropped, repeated in ((0.5, True, False), (1.5, False, True)):
+        _, pp = _moe_params(rcfg, 20, cap)
+        L._moe_local(pcfg, pp, x)
+        _, _, top_ids = L.route(pcfg, pp, x)
+        slots, C = seen["slots"], seen["C"]
+        assert C == 8
+        assert bool((slots == C).any()) == dropped
+        pairs = top_ids.reshape(-1)[slots < C] * C + slots[slots < C]
+        assert (pairs.unique().numel() < pairs.numel()) == repeated
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("top_k", [2, 3])
+def test_router_ties_follow_jax_top_k(dtype, top_k):
+    """Exactly tied gates go to the lower expert id, as ``jax.lax.top_k``
+    sends them: gates [.1, .3, .3, .2, .3, .1, .3, .05] pick experts [1, 2]
+    (k 2) and [1, 2, 4] (k 3), where ``torch.topk`` may pick others."""
+    rcfg, pcfg = _granite_cfgs()
+    rcfg = dataclasses.replace(rcfg, top_k=top_k)
+    pcfg = dataclasses.replace(pcfg, top_k=top_k)
+    rp, _ = _moe_params(rcfg, 22)
+    row = np.log(np.array([.1, .3, .3, .2, .3, .1, .3, .05], np.float32))
+    router = np.zeros((rcfg.d_model, rcfg.n_experts), np.float32)
+    router[0] = row
+    x = np.zeros((5, rcfg.d_model), np.float32)
+    x[:, 0] = 1.0  # every token's logits are exactly `row`
+    rp = dict(rp, router=jnp.asarray(router))
+    jd = getattr(jnp, dtype)
+    rp_d = jax.tree.map(lambda a: a.astype(jd), rp)
+    logits = jnp.asarray(x, jd) @ rp_d["router"] + rp_d["plan_bias"]
+    gates = jax.nn.softmax(logits.astype(jnp.float32), axis=-1)
+    _, want_ids = jax.lax.top_k(gates, top_k)
+    pp = {k: _t(v).to(getattr(torch, dtype)) for k, v in _np_tree(rp).items()}
+    _, _, got_ids = L.route(pcfg, pp, torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert got_ids.tolist() == np.asarray(want_ids).tolist()
+    assert got_ids[0].tolist() == [1, 2, 4][:top_k]
+    if dtype == "float32":
+        want, want_aux = RL._moe_local(rcfg, rp, jnp.asarray(x))
+        pp32 = {k: _t(v) for k, v in _np_tree(rp).items()}
+        got, aux = L._moe_local(pcfg, pp32, torch.from_numpy(x))
+        _assert_close(got, want)
+        _assert_close(aux, want_aux)
+
+
+def test_moe_fwd_with_a_mesh_raises():
+    rcfg, pcfg = _granite_cfgs()
+    _, pp = _moe_params(rcfg, 23)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 11"):
+        L.moe_fwd(pcfg, pp, torch.zeros(1, 2, pcfg.d_model), mesh=object())
+
+
+def test_lm_params_from_numpy_takes_granites_tree():
+    """The reference's Granite tree maps leaf for leaf: router, experts and
+    the plan leaves stacked over the groups, cast to the compute dtype
+    (final_norm stays float32)."""
+    rcfg, pcfg = _granite_cfgs()
+    rparams = _np_tree(RM.init(rcfg, jax.random.PRNGKey(5)))
+    got = lm_params_from_numpy(pcfg, rparams, dtype=torch.bfloat16, device=CPU)
+    ffn = got["groups"]["blk0"]["ffn"]
+    assert set(ffn) == {"router", "w_gate", "w_up", "w_down", "plan_bias",
+                        "plan_capacity"}
+    G, E, d, f = pcfg.n_groups, pcfg.n_experts, pcfg.d_model, pcfg.expert_d_ff_
+    assert tuple(ffn["w_gate"].shape) == (G, E, d, f)
+    assert tuple(ffn["w_down"].shape) == (G, E, f, d)
+    assert tuple(ffn["router"].shape) == (G, d, E)
+    assert all(a.dtype == torch.bfloat16 for a in ffn.values())
+    assert got["final_norm"]["scale"].dtype == torch.float32
+    for k, v in rparams["groups"]["blk0"]["ffn"].items():
+        torch.testing.assert_close(ffn[k], torch.from_numpy(np.array(v))
+                                   .to(torch.bfloat16), atol=0.0, rtol=0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_capacity_rounds_in_the_parameters_dtype(dtype, monkeypatch):
+    """``plan_capacity · C`` is rounded in the parameters' dtype, as the
+    reference rounds it: at C = 750 a bfloat16 capacity of 1.0 keeps 752
+    tokens an expert (bf16(750) = 752), and the last three add into slot
+    749; float32 keeps 750."""
+    rcfg, pcfg = _granite_cfgs()
+    _, pp = _moe_params(rcfg, 24)
+    pp = {k: v.to(getattr(torch, dtype)) for k, v in pp.items()}
+    pp["plan_bias"][0] = 50.0  # every token's top choice is expert 0
+    N = 2400  # C = ceil(2400 · 2 / 8 · 1.25) = 750
+    x = torch.from_numpy(_x((N, rcfg.d_model), seed=25)).to(pp["router"].dtype)
+    seen = {}
+    real = L.kops.dispatch_at_slots
+
+    def spy(tokens, ids, slots, E, C, use_kernel=True):
+        seen.update(ids=ids.clone(), slots=slots.clone(), C=C)
+        return real(tokens, ids, slots, E, C, use_kernel=use_kernel)
+
+    monkeypatch.setattr(L.kops, "dispatch_at_slots", spy)
+    L._moe_local(pcfg, pp, x)
+    C = seen["C"]
+    want_cap = int(jnp.round(jnp.ones((), getattr(jnp, dtype)) * C))
+    assert C == 750 and want_cap == (752 if dtype == "bfloat16" else 750)
+    kept0 = seen["slots"][(seen["ids"] == 0) & (seen["slots"] < C)]
+    assert kept0.numel() == want_cap
+    assert int((kept0 == C - 1).sum()) == want_cap - C + 1

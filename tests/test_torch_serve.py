@@ -7,6 +7,11 @@
   tokens, and on the reduced Falcon-Mamba (every cache leaf a recurrent
   state stacked over groups) both the reference engine's tokens and those
   of greedy re-running of the port's own ``forward``.
+* On the reduced Granite-MoE it gives exactly the reference engine's
+  tokens.  Expert capacity couples the tokens routed together, so a
+  decode step (every slot's token routed at once, empty slots' included)
+  differs by design from re-running ``forward`` on the whole sequence:
+  the reference engine, which has no tail to lose, is the oracle.
 * Continuous batching, sampling, and the entry points' refusal to fall
   back to the CPU quietly.
 """
@@ -53,6 +58,11 @@ def qwen():
 @pytest.fixture(scope="module")
 def falcon():
     return _pair("falcon-mamba-7b")
+
+
+@pytest.fixture(scope="module")
+def granite():
+    return _pair("granite-moe-3b-a800m")
 
 
 #: reference greedy tokens by (config, prompt, n), shared by the tests of
@@ -169,6 +179,34 @@ def test_falcon_mamba_engine_matches_reference_engine(falcon, slots):
     assert port.step_count == ref.step_count
 
 
+@pytest.mark.parametrize("slots", [2, 3])
+def test_granite_engine_matches_reference_engine(granite, slots):
+    """Tokens, time to first token and step count equal the reference
+    engine's.  At 3 slots a decode step routes 3 tokens × top-2 into 8
+    experts of capacity C = 2, so an empty slot's dummy token can take an
+    active slot's place, as in the reference."""
+    rcfg, pcfg, rparams, pparams = granite
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, rcfg.vocab, size=n).astype(np.int32)
+               for n in (7, 1, 12, 4, 9)]
+    ref = RefServeEngine(rcfg, rparams, RefServeConfig(slots=slots, max_len=48))
+    port = ServeEngine(pcfg, pparams, ServeConfig(slots=slots, max_len=48),
+                       device=CPU)
+    ref_reqs = [RefRequest(rid=i, prompt=p, max_new_tokens=3 + i)
+                for i, p in enumerate(prompts)]
+    port_reqs = [Request(rid=i, prompt=p, max_new_tokens=3 + i)
+                 for i, p in enumerate(prompts)]
+    for r in ref_reqs:
+        ref.submit(r)
+    for r in port_reqs:
+        port.submit(r)
+    ref_done, port_done = ref.run(), port.run()
+    assert [r.rid for r in port_done] == [r.rid for r in ref_done]
+    for a, b in zip(ref_reqs, port_reqs):
+        assert b.output == a.output and b.ttft_steps == a.ttft_steps, b.rid
+    assert port.step_count == ref.step_count
+
+
 def test_continuous_batching_serves_all(qwen):
     """tests/test_substrate.py's continuous-batching test, on the port."""
     _, cfg, _, params = qwen
@@ -228,6 +266,14 @@ def test_launch_serve_falcon_mamba_on_the_cpu(capsys):
                               "--device", "cpu"])
     assert len(done) == 8 and all(len(r.output) == 16 for r in done)
     assert "falcon-mamba-7b-smoke on cpu" in capsys.readouterr().out
+
+
+def test_launch_serve_granite_on_the_cpu(capsys):
+    done = launch_serve.main(["--arch", "granite-moe-3b-a800m", "--reduced",
+                              "--device", "cpu", "--requests", "5",
+                              "--slots", "3", "--max-new", "6"])
+    assert len(done) == 5 and all(len(r.output) == 6 for r in done)
+    assert "granite-moe-3b-a800m-smoke on cpu" in capsys.readouterr().out
 
 
 @pytest.fixture
