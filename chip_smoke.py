@@ -13,7 +13,11 @@ Phases:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
    and the kernels' build times (one ``nvcc`` per source, all started
-   together) with ``ptxas`` resource usage.
+   together) with ``ptxas`` resource usage; the registers and spills of
+   the bf16 tensor-core ``flash_attention`` instantiations, and, where the
+   toolkit has ``cuobjdump``, their ``HGMMA`` (``wgmma``) and ``UTMALDG``
+   (TMA load) instructions in the built library's SASS: a bf16 kernel
+   without ``HGMMA`` fails the run.
 2. Main path, the paper's loop through ``GeoJob`` at the paper's scale: the
    8-data-center PlanetLab platform, a 20M-word Zipf corpus (``vocab`` 2^20,
    the largest the 20-bit word packing allows), ``calibrate`` →
@@ -42,7 +46,11 @@ Phases:
    decode step.  The launch counts are zeroed just before and read just
    after.
 6. ``flash_attention`` and ``rglru_scan`` against their plain versions at
-   the served shapes, in bfloat16 and float32, with times; then a
+   the served shapes, in bfloat16 and float32, with times (for
+   ``flash_attention`` also one call alone: CUDA events around a single
+   launch after a synchronize, median of 20; the launches queued on the
+   card behind a sleep kernel; and the CUDA-core kernel that served bf16
+   before, called through its C entry); then a
    full-width cut to depth 5 — one (rg, rg, attn) group plus the two-block
    tail — in float32, run with the kernels and with the plain versions:
    the logits of a 3000-token prefill and of three decode steps must
@@ -71,7 +79,8 @@ Phases:
     4-slot decode step's 32 into (40, 8, 1536)), in bfloat16 and float32:
     bit for bit where every (expert, slot) pair is unique, to a stated
     tolerance where the served capacity rule repeats pairs; and
-    ``flash_attention`` at Granite's prefill shape; with times.  Then a
+    ``flash_attention`` at Granite's prefill shape; with times, as in
+    phase 6.  Then a
     full-width cut to depth 4 in float32: with the same attention, the
     model with the ``moe_dispatch`` kernel equals the one with its plain
     version bit for bit; with all kernels against all plain versions, the
@@ -190,10 +199,50 @@ def time_ms(fn, runs: int = 30, per_run: int = 10, warmup: int = 5) -> float:
     return statistics.median(samples)
 
 
+def time_alone_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of one call of ``fn`` alone: CUDA events around a
+    single call on an idle card (``synchronize`` before each), median over
+    ``runs``.  The wrapper's host work before its launch is inside."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    samples = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples)
+
+
+def time_queued_ms(fn, calls: int = 20) -> float:
+    """Milliseconds per call of ``fn`` on the card alone: the launches are
+    queued behind a ~25 ms sleep kernel, so the card runs them back to back
+    whatever the host's cost per call; CUDA events around them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def kernel_device_ms(fn, name: str, calls: int = 20):
-    """Mean device time of the CUDA kernels whose name contains ``name``
-    per call of ``fn``, from ``torch.profiler``; ``None`` where the profiler
-    records no device time."""
+    """Mean device time of one launch of the CUDA kernels whose name
+    contains ``name``, over the launches ``torch.profiler`` recorded in
+    ``calls`` calls of ``fn``; ``None`` where it records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -207,12 +256,16 @@ def kernel_device_ms(fn, name: str, calls: int = 20):
     except RuntimeError as exc:  # the profiler cannot trace this machine
         print(f"  profiler unavailable: {exc}")
         return None
-    total_us = 0.0
+    total_us, recorded = 0.0, 0
     for ev in prof.key_averages():
         if name in ev.key:
             total_us += (getattr(ev, "device_time_total", None)
                          or getattr(ev, "cuda_time_total", 0.0))
-    return total_us / calls / 1e3 if total_us > 0 else None
+            recorded += ev.count
+    if recorded != calls:
+        print(f"  profiler recorded {recorded} launches of {name} in {calls} "
+              "calls")
+    return total_us / recorded / 1e3 if total_us > 0 else None
 
 
 def segment_sum_bound_ms(n_kept: int, n: int, d: int, s: int, elem: int):
@@ -227,6 +280,97 @@ def segment_sum_bound_ms(n_kept: int, n: int, d: int, s: int, elem: int):
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+
+#: the bf16 tensor-core attention kernel, by the name its instantiations
+#: carry in the build log and the SASS
+FLASH_WGMMA = "flash_attention_kernel_wgmma"
+
+
+def ptxas_usage(log: str):
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    from an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    usage, fn, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = (int(m.group(1)), *spills)
+    return usage
+
+
+def sass_counts(so: Path, opcodes=("HGMMA", "UTMALDG")):
+    """{function: {opcode: count}} in the SASS of a built library, from
+    ``cuobjdump -sass``; ``None`` where the toolkit has no ``cuobjdump``."""
+    import os
+    import re
+    from repro_torch.kernels import _build
+
+    tool = Path(os.environ.get("CUDA_HOME") or
+                Path(_build.find_nvcc()).parent.parent) / "bin" / "cuobjdump"
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn:
+            for op in opcodes:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
+    return counts
+
+
+def _dh(mangled: str) -> str:
+    """The head width of a flash_attention instantiation's mangled name."""
+    import re
+
+    m = re.search(r"ILi(\d+)E", mangled)
+    return m.group(1) if m else "?"
+
+
+def check_flash_build(so: Path):
+    """Registers and spills of the bf16 tensor-core instantiations, and
+    their wgmma (HGMMA) and TMA (UTMALDG) instructions; fails if a bf16
+    tensor-core kernel has no HGMMA.  Returns what it read."""
+    from repro_torch.kernels import _build
+
+    usage = {fn: u for fn, u in ptxas_usage(_build.build_log("flash_attention"))
+             .items() if FLASH_WGMMA in fn}
+    check(usage, f"the build log lists no {FLASH_WGMMA} instantiation")
+    found = {}
+    for fn, (regs, st, ld) in sorted(usage.items(), key=lambda kv: int(_dh(kv[0]))):
+        found[_dh(fn)] = {"registers": regs, "spill_store_bytes": st,
+                          "spill_load_bytes": ld}
+        print(f"{FLASH_WGMMA}<Dh {_dh(fn)}>: {regs} registers, spill stores "
+              f"{st} B, spill loads {ld} B")
+    counts = sass_counts(so)
+    if counts is None:
+        print("cuobjdump not found next to nvcc: the SASS check of HGMMA "
+              "instructions is skipped")
+        return found
+    wgmma = {fn: c for fn, c in counts.items() if FLASH_WGMMA in fn}
+    check(wgmma, f"the SASS of {so.name} has no {FLASH_WGMMA} function")
+    for fn, c in sorted(wgmma.items(), key=lambda kv: int(_dh(kv[0]))):
+        print(f"{FLASH_WGMMA}<Dh {_dh(fn)}> SASS: {c['HGMMA']} HGMMA, "
+              f"{c['UTMALDG']} UTMALDG")
+        check(c["HGMMA"] > 0, f"{FLASH_WGMMA}<Dh {_dh(fn)}> has no HGMMA "
+              "instruction: the bf16 kernel does not run on the tensor cores")
+        found[_dh(fn)].update(c)
+    core = sum(c["HGMMA"] for fn, c in counts.items() if FLASH_WGMMA not in fn)
+    print(f"HGMMA in the CUDA-core flash_attention_kernel instantiations: {core}")
+    return found
+
 
 def phase_environment():
     import torch
@@ -260,7 +404,7 @@ def phase_environment():
         for line in _build.build_log(name).splitlines():
             if "ptxas info" in line:
                 print(f"  {line.strip()}")
-    return smi[0]
+    return check_flash_build(built["flash_attention"][0])
 
 
 def phase_main_path(device, n_docs=N_DOCS, words_per_doc=WORDS_PER_DOC,
@@ -502,9 +646,17 @@ def device_activity(prof):
     return busy_us, len(spans), by_name
 
 
+#: the LM kernels' device names, as the profiler lists them
+LM_KERNEL_NAMES = {"flash_attention": "flash_attention_kernel",
+                   "rglru_scan": "rglru_scan_kernel",
+                   "mamba_scan": "mamba_scan_kernel",
+                   "moe_dispatch": "moe_dispatch_kernel"}
+
+
 def profile_breakdown(fn, label, top=8):
     """Where one call of ``fn`` spends its time on the card: host wall,
-    device busy share and the ``top`` kernels by device time."""
+    device busy share, the ``top`` kernels by device time, and each LM
+    kernel's launches and device time per launch in place."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -526,6 +678,14 @@ def profile_breakdown(fn, label, top=8):
           f"events {n}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {us / 1e3:10.3f} ms  {us / total:6.1%}  {name[:110]}")
+    for kernel, key in LM_KERNEL_NAMES.items():
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and key in e.name]
+        if spans:
+            print(f"  in place: {kernel} {len(spans)} launches, "
+                  f"{sum(spans) / 1e3!r} ms ({sum(spans) / total:.1%}), "
+                  f"{sum(spans) / len(spans) / 1e3!r} ms per launch")
 
 
 def solver_device_share(device, n_restarts=N_RESTARTS, steps=50):
@@ -769,6 +929,40 @@ def flash_bound_ms(q, k, causal, window, q_offset):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def flash_timings(q, k, v, window, causal=True):
+    """bf16 flash_attention at a served shape, timed five ways: the wrapper
+    back to back, the profiler's device time per launch, one call alone,
+    the launches queued on the card; and the CUDA-core kernel that served
+    the shape before (its C entry called directly: no launch is counted)
+    back to back and queued."""
+    import torch
+    from repro_torch.kernels.flash_attention import _kernel, flash_attention
+
+    def run():
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    def cuda_core():
+        out = torch.empty_like(q)
+        B, Hq, T, Dh = q.shape
+        rc = _kernel("flash_attention_bf16")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
+            k.shape[1], T, k.shape[2], Dh, int(causal),
+            -1 if window is None else window, 0, Dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the CUDA-core flash_attention kernel failed: {rc}")
+        return out
+
+    return {
+        "ms": time_ms(run, runs=10, per_run=5),
+        "kernel_device_ms": kernel_device_ms(run, "flash_attention_kernel",
+                                             calls=5),
+        "alone_ms": time_alone_ms(run),
+        "queued_ms": time_queued_ms(run),
+        "cuda_core_ms": time_ms(cuda_core, runs=3, per_run=3, warmup=1),
+        "cuda_core_queued_ms": time_queued_ms(cuda_core, calls=5),
+    }
+
+
 def rglru_bound_ms(x, has_h0):
     """Least time: x and a read, y written, h0 read and h_T written once;
     about 7 float32 operations per element."""
@@ -846,26 +1040,29 @@ def phase_lm_kernels(device, launches, lengths=(17, 2049, 3000), hq=16, dh=256,
     mask = torch.ones(t_len, t_len, dtype=torch.bool, device=device).tril()
     mask &= ~torch.ones_like(mask).tril(-window)
     kx, vx = k.expand(q.shape), v.expand(q.shape)  # MQA as views
-    ms = time_ms(lambda: flash_attention(q, k, v, window=window), runs=10,
-                 per_run=5)
-    dev_ms = kernel_device_ms(lambda: flash_attention(q, k, v, window=window),
-                              "flash_attention_kernel", calls=5)
+    times = flash_timings(q, k, v, window)
+    ms, dev_ms = times["ms"], times["kernel_device_ms"]
     plain = time_ms(lambda: attention_ref(q, k, v, window=window), runs=5,
                     per_run=1, warmup=1)
-    library = time_ms(lambda: F.scaled_dot_product_attention(
-        q, kx, vx, attn_mask=mask), runs=10, per_run=5)
+    def sdpa():
+        return F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask)
+
+    library = time_ms(sdpa, runs=10, per_run=5)
+    times["library_queued_ms"] = time_queued_ms(sdpa)
     bound, bound_by = flash_bound_ms(q, k, True, window, 0)
     print(f"timing flash_attention (1,{hq},{t_len},{dh}) window {window} "
-          f"{q.dtype}: wrapper {ms!r} ms  kernel (device) {dev_ms!r} ms  plain "
-          f"{plain!r} ms  library (sdpa, boolean mask) {library!r} ms  bound "
-          f"{bound!r} ms ({bound_by})")
+          f"{q.dtype}: wrapper {ms!r} ms  kernel (device) {dev_ms!r} ms  one "
+          f"call alone (events) {times['alone_ms']!r} ms  queued on the card "
+          f"{times['queued_ms']!r} ms  CUDA-core kernel {times['cuda_core_ms']!r}"
+          f" ms (queued {times['cuda_core_queued_ms']!r})  plain {plain!r} ms  "
+          f"library (sdpa, boolean mask) {library!r} ms (queued "
+          f"{times['library_queued_ms']!r})  bound {bound!r} ms ({bound_by})")
     entries = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
         "launches": launches["flash_attention"],
-        "max_abs_err": errs["flash_attention"], "ms": ms,
-        "kernel_device_ms": dev_ms, "plain_ms": plain,
+        "max_abs_err": errs["flash_attention"], **times, "plain_ms": plain,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
         "shape": {"B": 1, "Hq": hq, "Hkv": 1, "T": t_len, "S": t_len,
                   "Dh": dh, "window": window, "dtype": str(q.dtype)},
@@ -1219,16 +1416,15 @@ def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
         print(f"flash_attention (1,{hq},{prompt_len},{dh}) Hkv {hkv} causal "
               f"{dtype}: max |err| {err!r} (atol {atol}, rtol {rtol})")
         if dtype == torch.bfloat16:
-            run = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
-            flash["ms"] = time_ms(run, runs=10, per_run=5)
-            flash["kernel_device_ms"] = kernel_device_ms(
-                run, "flash_attention_kernel", calls=5)
+            flash.update(flash_timings(q, k, v, None))
             flash["plain_ms"] = time_ms(lambda: attention_ref(q, k, v),
                                         runs=5, per_run=1, warmup=1)
-            flash["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                       enable_gqa=True),
-                runs=10, per_run=5)
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+
+            flash["library_ms"] = time_ms(sdpa, runs=10, per_run=5)
+            flash["library_queued_ms"] = time_queued_ms(sdpa)
             flash["bound_ms"], flash["bound_by"] = flash_bound_ms(
                 q, k, True, None, 0)
             flash["shape"] = {"B": 1, "Hq": hq, "Hkv": hkv, "T": prompt_len,
@@ -1236,9 +1432,13 @@ def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
                               "dtype": str(dtype)}
     print(f"timing flash_attention (1,{hq},{prompt_len},{dh}) Hkv {hkv} causal "
           f"bfloat16: wrapper {flash['ms']!r} ms  kernel (device) "
-          f"{flash['kernel_device_ms']!r} ms  plain {flash['plain_ms']!r} ms  "
-          f"library (sdpa, is_causal, enable_gqa) {flash['library_ms']!r} ms  "
-          f"bound {flash['bound_ms']!r} ms ({flash['bound_by']})")
+          f"{flash['kernel_device_ms']!r} ms  one call alone (events) "
+          f"{flash['alone_ms']!r} ms  queued on the card {flash['queued_ms']!r} "
+          f"ms  CUDA-core kernel {flash['cuda_core_ms']!r} ms (queued "
+          f"{flash['cuda_core_queued_ms']!r})  plain {flash['plain_ms']!r} ms  "
+          f"library (sdpa, is_causal, enable_gqa) {flash['library_ms']!r} ms "
+          f"(queued {flash['library_queued_ms']!r})  bound {flash['bound_ms']!r} "
+          f"ms ({flash['bound_by']})")
     return entry, flash
 
 
@@ -1386,7 +1586,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
     repro_torch.set_default_device(device)
     t0 = time.perf_counter()
-    phase_environment()
+    flash_build = phase_environment()
     reducer_inputs, launches = phase_main_path(device)
     entries = [phase_segment_sum(device, reducer_inputs, launches)]
     phase_batched_solver(device)
@@ -1410,6 +1610,7 @@ def main() -> None:
     flash["launches"] += granite["flash_attention"]
     flash["max_abs_err"] = max(flash["max_abs_err"], flash_granite["max_abs_err"])
     flash["granite_prefill"] = flash_granite
+    flash["bf16_tensor_core_build"] = flash_build
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {

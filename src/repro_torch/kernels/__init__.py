@@ -3,7 +3,8 @@
 * :mod:`repro_torch.kernels.segment_reduce` — ``segment_sum``, CUDA C++ in
   ``csrc/segment_sum.cu`` (word count's reduce).
 * :mod:`repro_torch.kernels.flash_attention` — ``flash_attention``, CUDA
-  C++ in ``csrc/flash_attention.cu`` (local-attention prefill).
+  C++ in ``csrc/flash_attention.cu`` (prefill attention: bf16 on the
+  tensor cores with ``wgmma`` fed by TMA, float32 on the CUDA cores).
 * :mod:`repro_torch.kernels.mamba_scan` — ``mamba_scan``, CUDA C++ in
   ``csrc/mamba_scan.cu`` (the Mamba-1 selective scan, prefill and decode).
 * :mod:`repro_torch.kernels.moe_dispatch` — ``moe_dispatch``, CUDA C++ in

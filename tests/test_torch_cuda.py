@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import _entry as flash_entry  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
@@ -131,6 +132,14 @@ ATTN_CASES = [
     (2, 4, 1, 33, 33, 16, True, 32, 0),
     (1, 4, 1, 8, 40, 80, True, 16, 32),
 ]
+# the two served bf16 shapes at reduced T, T and S no multiple of any tile
+# (Granite: GQA 24/8, Dh 64, causal; RecurrentGemma: MQA, Dh 256, window),
+# and a decode-like offset with S > T at Dh 256 with a window
+SERVED_ATTN_CASES = [
+    (1, 24, 8, 520, 520, 64, True, None, 0),
+    (1, 16, 1, 700, 700, 256, True, 256, 0),
+    (1, 4, 1, 100, 1300, 256, True, 256, 1200),
+]
 
 
 def _normal(shape, seed, device, dtype):
@@ -140,7 +149,8 @@ def _normal(shape, seed, device, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Hq,Hkv,T,S,Dh,causal,window,qoff", ATTN_CASES)
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,Dh,causal,window,qoff",
+                         ATTN_CASES + SERVED_ATTN_CASES)
 def test_flash_attention_matches_plain_version(card, dtype, B, Hq, Hkv, T, S,
                                                Dh, causal, window, qoff):
     q = _normal((B, Hq, T, Dh), 0, card, dtype)
@@ -153,6 +163,44 @@ def test_flash_attention_matches_plain_version(card, dtype, B, Hq, Hkv, T, S,
     want = attention_ref(q, k, v, causal=causal, window=window, q_offset=qoff)
     assert got.dtype == q.dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **KTOL[dtype])
+
+
+@pytest.mark.parametrize("Dh,entry", [
+    (64, "flash_attention_bf16_wgmma"), (128, "flash_attention_bf16_wgmma"),
+    (256, "flash_attention_bf16_wgmma"), (48, "flash_attention_bf16"),
+    (96, "flash_attention_bf16"), (200, "flash_attention_bf16"),
+])
+def test_flash_attention_bf16_width_rule(card, Dh, entry):
+    """Both sides of the head-width rule in bf16: the tensor-core kernel at
+    64, 128 and 256, the CUDA-core kernel elsewhere; both match the plain
+    version."""
+    assert flash_entry(torch.bfloat16, Dh) == entry
+    q = _normal((1, 4, 150, Dh), 0, card, "bfloat16")
+    k = _normal((1, 2, 150, Dh), 1, card, "bfloat16")
+    v = _normal((1, 2, 150, Dh), 2, card, "bfloat16")
+    got = flash_attention(q, k, v, causal=True, window=100)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=True, window=100)
+    torch.testing.assert_close(got.float(), want.float(), **KTOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,Dh,causal", [(4, 2, 64, True),
+                                              (4, 1, 256, False)])
+def test_flash_attention_reads_no_keys_past_s(card, dtype, Hq, Hkv, Dh,
+                                              causal):
+    """S = 77 is no multiple of a kv tile, so batch row 0's last tile runs
+    past its keys: those rows must be zeros, not batch row 1's, whose V is
+    inf.  Row 0's output equals the plain version's and is finite."""
+    q = _normal((2, Hq, 40, Dh), 0, card, dtype)
+    k = _normal((2, Hkv, 77, Dh), 1, card, dtype)
+    v = _normal((2, Hkv, 77, Dh), 2, card, dtype)
+    v[1] = float("inf")
+    got = flash_attention(q, k, v, causal=causal, q_offset=37)
+    torch.cuda.synchronize()
+    want = attention_ref(q[:1], k[:1], v[:1], causal=causal, q_offset=37)
+    assert bool(torch.isfinite(got[0]).all())
+    torch.testing.assert_close(got[:1].float(), want.float(), **KTOL[dtype])
 
 
 def test_flash_attention_fully_masked_rows_give_zero(card):

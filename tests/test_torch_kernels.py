@@ -20,6 +20,8 @@ from repro.kernels.moe_dispatch import moe_dispatch as pallas_moe  # noqa: E402
 from repro.kernels.rglru_scan import rglru_scan as pallas_rglru  # noqa: E402
 from repro.kernels.segment_reduce import segment_sum as pallas_segment_sum  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import _entry as _flash_entry  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels.moe_dispatch import compute_slots, moe_dispatch  # noqa: E402
@@ -194,6 +196,43 @@ def test_lm_kernels_on_cpu_take_the_plain_versions():
         torch.testing.assert_close(y, wy, atol=0.0, rtol=0.0)
         torch.testing.assert_close(h, wh, atol=0.0, rtol=0.0)
     assert (flash_attention.launches, rglru_scan.launches) == before
+
+
+@pytest.mark.parametrize("dh,entry", [
+    (64, "flash_attention_bf16_wgmma"), (128, "flash_attention_bf16_wgmma"),
+    (256, "flash_attention_bf16_wgmma"), (16, "flash_attention_bf16"),
+    (32, "flash_attention_bf16"), (80, "flash_attention_bf16"),
+    (192, "flash_attention_bf16"), (255, "flash_attention_bf16"),
+])
+def test_flash_attention_bf16_entry_rule(dh, entry):
+    """bf16 takes the tensor-core kernel at the whole-box widths 64, 128
+    and 256 (both served widths), the CUDA-core kernel elsewhere."""
+    assert _flash_entry(torch.bfloat16, dh) == entry
+
+
+@pytest.mark.parametrize("dh", [16, 64, 80, 128, 256])
+def test_flash_attention_float32_stays_on_the_cuda_cores(dh):
+    assert _flash_entry(torch.float32, dh) == "flash_attention_f32"
+
+
+def test_flash_attention_entry_rule_raises():
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            _flash_entry(dtype, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="head dim"):
+            _flash_entry(dtype, 257)
+
+
+def test_flash_attention_entries_exist_in_the_source():
+    """Every entry point the rule names is a C entry of the kernel source."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    named = {_flash_entry(dtype, dh) for dtype in (torch.float32, torch.bfloat16)
+             for dh in (16, 64, 80, 128, 256)}
+    assert named == {"flash_attention_f32", "flash_attention_bf16",
+                     "flash_attention_bf16_wgmma"}
+    for entry in named:
+        assert f'extern "C" int {entry}(' in src
 
 
 #: the reference's bar for the Mamba kernel (tests/test_kernels.py:81-87):
