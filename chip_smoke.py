@@ -27,12 +27,15 @@ Phases:
    non-empty reducer must have launched the kernel, the optimized plan must
    beat both baselines on measured makespan, and ``model_error`` must be
    finite.  The ``segment_sum`` launch count is zeroed just before and read
-   just after.
+   just after; one more ``execute`` is profiled for the kernel in place.
 3. ``segment_sum`` against its plain version on the card, at the shapes the
    main path gave it (every reducer's input, recorded) and at stress
-   shapes: unsorted and out-of-range ids, a reducer without in-mapper
-   combining, and wide rows in float32 and bfloat16.  Times are CUDA-event
-   medians.
+   shapes: unsorted and out-of-range ids, ids and values at storage
+   offsets that are not 16 bytes, one id for a million rows, a reducer
+   without in-mapper combining (a hot id), and wide rows in float32 and
+   bfloat16; with the kernel's ``ptxas`` registers and spills.  Times are
+   CUDA-event medians, the wrapper's taken in turns with its PyTorch call's,
+   the device's also queued behind a sleep kernel.
 4. Batched solver: 64 PlanetLab platforms planned in one batched solve;
    every plan valid and never worse than uniform.  Then the device busy
    share of a warm single-job solve, from ``torch.profiler``.
@@ -77,8 +80,11 @@ Phases:
 10. ``moe_dispatch`` against its plain version at the served shapes (the
     3000-token prefill's 24,000 routed rows into (40, 750, 1536) and the
     4-slot decode step's 32 into (40, 8, 1536)), in bfloat16 and float32:
-    bit for bit where every (expert, slot) pair is unique, to a stated
-    tolerance where the served capacity rule repeats pairs; and
+    bit for bit where every (expert, slot) pair is unique; where the served
+    capacity rule repeats pairs, to a stated tolerance against the plain
+    version on the card (atomics) and bit for bit against it on a CPU copy
+    and against a second call (row-order sums); with the kernels' ``ptxas``
+    registers and spills; and
     ``flash_attention`` at Granite's prefill shape; with times, as in
     phase 6.  Then a
     full-width cut to depth 4 in float32: with the same attention, the
@@ -199,6 +205,33 @@ def time_ms(fn, runs: int = 30, per_run: int = 10, warmup: int = 5) -> float:
     return statistics.median(samples)
 
 
+def time_pair_ms(fn_a, fn_b, runs: int = 40, per_run: int = 10,
+                 warmup: int = 5):
+    """(ms per call of ``fn_a``, of ``fn_b``) as ``time_ms`` measures each,
+    in turns (a b, b a, ...) so that both see the same host: where a call
+    is bound by the host's cost, back-to-back times drift between and
+    within runs by more than the two calls differ."""
+    import torch
+
+    for _ in range(warmup):
+        fn_a()
+        fn_b()
+    torch.cuda.synchronize()
+    samples = {0: [], 1: []}
+    for r in range(runs):
+        for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+            fn = fn_a if k == 0 else fn_b
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(per_run):
+                fn()
+            end.record()
+            end.synchronize()
+            samples[k].append(start.elapsed_time(end) / per_run)
+    return statistics.median(samples[0]), statistics.median(samples[1])
+
+
 def time_alone_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     """Median milliseconds of one call of ``fn`` alone: CUDA events around a
     single call on an idle card (``synchronize`` before each), median over
@@ -239,13 +272,17 @@ def time_queued_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
-def kernel_device_ms(fn, name: str, calls: int = 20):
-    """Mean device time of one launch of the CUDA kernels whose name
-    contains ``name``, over the launches ``torch.profiler`` recorded in
-    ``calls`` calls of ``fn``; ``None`` where it records no device time."""
+def kernel_device_ms(fn, names, calls: int = 20):
+    """Mean device time of one call of ``fn``, from ``torch.profiler`` over
+    ``calls`` calls: for each kernel name in ``names`` (a substring of the
+    CUDA kernels' names; one string or several, for a call that launches
+    several kernels or one of several), its device time over the launches
+    the profiler recorded, summed over the names it recorded; ``None``
+    where it records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (names,) if isinstance(names, str) else tuple(names)
     fn()
     torch.cuda.synchronize()
     try:
@@ -256,16 +293,23 @@ def kernel_device_ms(fn, name: str, calls: int = 20):
     except RuntimeError as exc:  # the profiler cannot trace this machine
         print(f"  profiler unavailable: {exc}")
         return None
-    total_us, recorded = 0.0, 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total_us += (getattr(ev, "device_time_total", None)
-                         or getattr(ev, "cuda_time_total", 0.0))
-            recorded += ev.count
-    if recorded != calls:
-        print(f"  profiler recorded {recorded} launches of {name} in {calls} "
-              "calls")
-    return total_us / recorded / 1e3 if total_us > 0 else None
+    per_call = None
+    for name in names:
+        total_us, recorded = 0.0, 0
+        for ev in prof.key_averages():
+            if name in ev.key:
+                total_us += (getattr(ev, "device_time_total", None)
+                             or getattr(ev, "cuda_time_total", 0.0))
+                recorded += ev.count
+        if recorded and recorded != calls:
+            print(f"  profiler recorded {recorded} launches of {name} in "
+                  f"{calls} calls")
+        if total_us > 0:
+            per_call = (per_call or 0.0) + total_us / recorded / 1e3
+    if per_call is None:
+        print(f"  profiler recorded no launch of {' or '.join(names)} in "
+              f"{calls} calls")
+    return per_call
 
 
 def segment_sum_bound_ms(n_kept: int, n: int, d: int, s: int, elem: int):
@@ -370,6 +414,33 @@ def check_flash_build(so: Path):
     core = sum(c["HGMMA"] for fn, c in counts.items() if FLASH_WGMMA not in fn)
     print(f"HGMMA in the CUDA-core flash_attention_kernel instantiations: {core}")
     return found
+
+
+def print_ptxas(name: str):
+    """Registers and spills of each instantiation of kernel ``name``, from
+    its build log; returns {short name: {registers, spill bytes}}."""
+    import re
+    from repro_torch.kernels import _build
+
+    usage = {}
+    for fn, (regs, st, ld) in sorted(ptxas_usage(_build.build_log(name)).items()):
+        m = re.search(rf"{name}_[a-z]+_kernel", fn)
+        kind = m.group(0) if m else fn
+        dtype = "bf16" if "bfloat16" in fn else ("f32" if "If" in fn else "")
+        arg = re.search(r"Li(\d+)E", fn)  # an int template argument
+        if arg and "rows" in kind:
+            width = f"{arg.group(1)} rows a lane"
+        elif (arg and arg.group(1) != "1") or "3Vec" in fn:
+            width = "vector"
+        else:
+            width = "scalar" if arg or "6Scalar" in fn else ""
+        short = " ".join(x for x in (kind, dtype, width) if x)
+        usage[short] = {"registers": regs, "spill_store_bytes": st,
+                        "spill_load_bytes": ld}
+        print(f"ptxas {short}: {regs} registers, spill stores {st} B, spill "
+              f"loads {ld} B")
+    check(usage, f"the build log of {name} lists no kernel")
+    return usage
 
 
 def phase_environment():
@@ -495,6 +566,8 @@ def phase_main_path(device, n_docs=N_DOCS, words_per_doc=WORDS_PER_DOC,
     warm_s = time.perf_counter() - t
     print(f"solve e2e_multi {n_restarts}x{steps}: {warm_s:.3f} s (second "
           f"call)  modeled makespan {job.planned.makespan!r} s")
+    if device.type == "cuda":  # segment_sum in place, in one execute
+        profile_breakdown(lambda: job.execute(sources), "execute", top=3)
     return reducer_inputs, launches
 
 
@@ -538,6 +611,19 @@ def phase_segment_sum(device, reducer_inputs, launches):
     bad[3::11] = -1
     cases.append(("main-path shape, out-of-range ids", vals[perm].contiguous(),
                   bad, s, 0.0, 0.0))
+    # the same reducer's ids and values at storage offsets that are not 16
+    # bytes: views into larger tensors (the kernel's ragged head and tail,
+    # vector loads only where both line up)
+    for i_off, v_off in ((1, 3), (2, 2), (3, 0)):
+        i_view = torch.cat([ids[:i_off], ids])[i_off:]
+        v_view = torch.cat([vals[:v_off], vals])[v_off:]
+        cases.append((f"main-path shape, ids offset {i_off} values offset "
+                      f"{v_off}", v_view, i_view, s, 0.0, 0.0))
+    # a hot id: one id for every row, a run across every lane and warp
+    cases.append(("one id for every row N=1000000",
+                  torch.ones(1_000_000, 1, device=device),
+                  torch.zeros(1_000_000, dtype=torch.int32, device=device), 1,
+                  0.0, 0.0))
     # a reducer without in-mapper combining: one record per word occurrence
     big_n, big_s = 2_500_000, 131_072
     rng = np.random.default_rng(0)
@@ -554,6 +640,7 @@ def phase_segment_sum(device, reducer_inputs, launches):
     cases.append(("wide bf16 N=65536 S=4096 D=128",
                   wide.to(torch.bfloat16), wide_ids, 4096, 1e-3, 1e-2))
 
+    ptxas = print_ptxas("segment_sum")
     rows = []
     for label, v, i, s, atol, rtol in cases:
         got = segment_sum(v, i, s)
@@ -569,7 +656,7 @@ def phase_segment_sum(device, reducer_inputs, launches):
               f"{label}: max |err| {float(err.max())} over atol {atol} "
               f"rtol {rtol}")
         rows.append((label, v, i, s, float(err.max()) if err.numel() else 0.0))
-        print(f"{label:36s} N={i.shape[0]} S={s} D={v.shape[1]} {v.dtype}: "
+        print(f"{label:42s} N={i.shape[0]} S={s} D={v.shape[1]} {v.dtype}: "
               f"max |err| {rows[-1][4]!r} (atol {atol}, rtol {rtol})")
 
     entry = None
@@ -580,27 +667,38 @@ def phase_segment_sum(device, reducer_inputs, launches):
         kept = int(((i >= 0) & (i < s)).sum())
         elem = v.element_size()
         bound, bound_by = segment_sum_bound_ms(kept, n, d, s, elem)
-        ms = time_ms(lambda: segment_sum(v, i, s))
         plain = time_ms(lambda: segment_sum_ref(v, i, s))
-        library = None
+        run = lambda: segment_sum(v, i, s)  # noqa: E731
+        ms = time_ms(run)
+        library = in_turns = None
         if v.dtype == torch.float32:
             i64 = i.long()
-            library = time_ms(
-                lambda: torch.zeros(s, d, device=device).index_add_(0, i64, v))
-        dev_ms = kernel_device_ms(lambda: segment_sum(v, i, s),
-                                  "segment_sum_kernel")
+
+            def index_add():
+                return torch.zeros(s, d, device=device).index_add_(0, i64, v)
+
+            library = time_ms(index_add)
+            in_turns = time_pair_ms(run, index_add)
+        dev_ms = kernel_device_ms(run, "segment_sum_")
+        queued = time_queued_ms(run)
         print(f"timing {label:32s} wrapper {ms!r} ms  kernel (device) "
-              f"{dev_ms!r} ms  plain {plain!r} ms  library {library!r} ms  "
-              f"bound {bound!r} ms ({bound_by})")
+              f"{dev_ms!r} ms  queued on the card (zero-fill, kernel and "
+              f"cast) {queued!r} ms  plain {plain!r} ms  library {library!r} "
+              f"ms  in turns (wrapper, library) {in_turns!r} ms  bound "
+              f"{bound!r} ms ({bound_by})")
         if label == main[0]:
             entry = {
                 "name": "segment_sum", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
                 "replaces": "src/repro/kernels/segment_reduce.py:26",
                 "launches": launches, "max_abs_err": max(r[4] for r in rows),
-                "ms": ms, "kernel_device_ms": dev_ms, "plain_ms": plain,
-                "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
+                "ms": ms, "kernel_device_ms": dev_ms, "queued_ms": queued,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": library,
+                "ms_in_turns": in_turns and in_turns[0],
+                "library_ms_in_turns": in_turns and in_turns[1],
                 "shape": {"N": n, "S": s, "D": d, "dtype": str(v.dtype)},
+                "ptxas": ptxas,
             }
     return entry
 
@@ -646,17 +744,23 @@ def device_activity(prof):
     return busy_us, len(spans), by_name
 
 
-#: the LM kernels' device names, as the profiler lists them
-LM_KERNEL_NAMES = {"flash_attention": "flash_attention_kernel",
-                   "rglru_scan": "rglru_scan_kernel",
-                   "mamba_scan": "mamba_scan_kernel",
-                   "moe_dispatch": "moe_dispatch_kernel"}
+#: moe_dispatch's kernels: the index and gather passes, launched once
+#: each a call, or the one-launch path of a small dispatch
+MOE_KERNELS = ("moe_dispatch_index_kernel", "moe_dispatch_gather_kernel",
+               "moe_dispatch_small_kernel")
+#: the kernels' device names, as the profiler lists them: one kernel a
+#: call, or moe_dispatch's two
+KERNEL_NAMES = {"segment_sum": ("segment_sum_",),
+                "flash_attention": ("flash_attention_kernel",),
+                "rglru_scan": ("rglru_scan_kernel",),
+                "mamba_scan": ("mamba_scan_kernel",),
+                "moe_dispatch": MOE_KERNELS}
 
 
 def profile_breakdown(fn, label, top=8):
     """Where one call of ``fn`` spends its time on the card: host wall,
-    device busy share, the ``top`` kernels by device time, and each LM
-    kernel's launches and device time per launch in place."""
+    device busy share, the ``top`` kernels by device time, and each
+    kernel's launches and device time per call in place."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -678,14 +782,17 @@ def profile_breakdown(fn, label, top=8):
           f"events {n}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {us / 1e3:10.3f} ms  {us / total:6.1%}  {name[:110]}")
-    for kernel, key in LM_KERNEL_NAMES.items():
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and key in e.name]
-        if spans:
-            print(f"  in place: {kernel} {len(spans)} launches, "
-                  f"{sum(spans) / 1e3!r} ms ({sum(spans) / total:.1%}), "
-                  f"{sum(spans) / len(spans) / 1e3!r} ms per launch")
+    for kernel, keys in KERNEL_NAMES.items():
+        spans = {key: [e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and key in e.name] for key in keys}
+        calls = max(len(v) for v in spans.values())  # each name once a call
+        us = sum(sum(v) for v in spans.values())
+        if calls:
+            print(f"  in place: {kernel} {calls} calls "
+                  f"({sum(len(v) for v in spans.values())} kernels), "
+                  f"{us / 1e3!r} ms ({us / total:.1%}), "
+                  f"{us / calls / 1e3!r} ms per call")
 
 
 def solver_device_share(device, n_restarts=N_RESTARTS, steps=50):
@@ -1306,6 +1413,26 @@ def _routed(n_tokens, top_k, n_experts, capacity, d, dtype, rule, device,
     return tokens, ids, slots
 
 
+def _three_pass(tokens, ids, slot_ids, n_experts, capacity):
+    """moe_dispatch's C entry given a workspace, so that it takes its
+    memset, index and gather passes whatever the size (the wrapper gives
+    none to a dispatch of the one-launch size)."""
+    import torch
+    from repro_torch.kernels.moe_dispatch import _kernel
+
+    t, d = tokens.shape
+    out = torch.empty((n_experts, capacity, d), dtype=tokens.dtype,
+                      device=tokens.device)
+    tables = torch.empty(2 * n_experts * capacity, dtype=torch.int32,
+                         device=tokens.device)
+    rc = _kernel(tokens.dtype)(
+        tokens.data_ptr(), ids.data_ptr(), slot_ids.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), t, d, n_experts, capacity,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"moe_dispatch three-pass path: CUDA error {rc}")
+    return out
+
+
 def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
                      d=1536, n_experts=40, top_k=8, capacity_factor=1.25,
                      hq=24, hkv=8, dh=64):
@@ -1321,11 +1448,14 @@ def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
 
     print("== phase 10a: moe_dispatch and flash_attention (Granite's shapes) "
           "against their plain versions", flush=True)
-    # repeated pairs: at most 3 float32 rows add into one slot, in an order
+    # repeated pairs against the plain version on the card: its index_add_
+    # adds at most 3 float32 rows into one slot with atomics, in an order
     # that changes from run to run (~2 float32 ulps of the sum); a bfloat16
     # output may then round to the neighbouring value (one bf16 ulp, 2^-7
-    # relative at most)
+    # relative at most).  Against the plain version on a CPU copy, which
+    # adds them in row order as the kernel does: bit for bit.
     tol = {"torch.float32": (1e-5, 1e-6), "torch.bfloat16": (1e-5, 2 ** -7)}
+    ptxas = print_ptxas("moe_dispatch")
     err_max, timed = 0.0, {}
     for n_tokens, label in ((prompt_len, "prefill"), (slots, "decode")):
         c = moe_capacity(n_tokens, top_k, n_experts, capacity_factor)
@@ -1357,6 +1487,18 @@ def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
                       f"E={n_experts} C={c} {dtype} {rule}: kept "
                       f"{int(kept.sum())}, repeated pairs {repeats}, max "
                       f"|err| {err!r} ({how})")
+                if rule == "served":
+                    cpu = moe_dispatch_ref(*(a.cpu() for a in args), n_experts,
+                                           c)
+                    again = moe_dispatch(*args, n_experts, c)
+                    _sync(device)
+                    check(torch.equal(got.cpu(), cpu) and torch.equal(got, again),
+                          f"moe_dispatch {label} {rule} {dtype}: not equal bit "
+                          "for bit to the plain version on a CPU copy, or to "
+                          "a second call")
+                    print(f"moe_dispatch {label} {dtype} {rule}: equal bit for "
+                          "bit to the plain version on a CPU copy and to a "
+                          "second call")
                 timed[(label, dtype, rule)] = (args, c, int(kept.sum()))
 
     entry = None
@@ -1373,18 +1515,35 @@ def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
                                    device=device).index_add_(0, flat, tokens)
 
             run = lambda: moe_dispatch(tokens, ids, slot_ids, n_experts, c)  # noqa: E731
-            ms = time_ms(run, runs=10, per_run=5)
-            dev_ms = kernel_device_ms(run, "moe_dispatch_kernel", calls=5)
+            ms, lib_ms = time_ms(run), time_ms(library)
+            in_turns = time_pair_ms(run, library)
+            dev_ms = kernel_device_ms(run, MOE_KERNELS)
+            queued = time_queued_ms(run)
+            lib_queued = time_queued_ms(library)
             plain = time_ms(lambda: moe_dispatch_ref(tokens, ids, slot_ids,
                                                      n_experts, c),
                             runs=5, per_run=2)
-            lib_ms = time_ms(library, runs=10, per_run=5)
             bound, bound_by = moe_bound_ms(n_kept, t, d, n_experts, c,
                                            tokens.element_size())
             print(f"timing moe_dispatch {label} T={t} D={d} E={n_experts} "
-                  f"C={c} {dtype}: wrapper {ms!r} ms  kernel (device) "
-                  f"{dev_ms!r} ms  plain {plain!r} ms  library (index_add_) "
-                  f"{lib_ms!r} ms  bound {bound!r} ms ({bound_by})")
+                  f"C={c} {dtype}: wrapper {ms!r} ms  kernels (device; the "
+                  f"index and gather passes, or the one-launch path) "
+                  f"{dev_ms!r} ms  queued on the card (with the tables' "
+                  f"zero-fill) {queued!r} ms  plain {plain!r} ms  library "
+                  f"(index_add_) {lib_ms!r} ms (queued {lib_queued!r})  in "
+                  f"turns (wrapper, library) {in_turns!r} ms  bound "
+                  f"{bound!r} ms ({bound_by})")
+            if label == "decode":
+                # the other path at this size: memset, index and gather
+                # passes, given a workspace as above the one-launch size
+                three = lambda: _three_pass(tokens, ids, slot_ids, n_experts, c)  # noqa: E731
+                check(torch.equal(three(), run()), f"moe_dispatch {label} "
+                      f"{dtype}: the three-pass path differs from the "
+                      "one-launch path")
+                print(f"timing moe_dispatch {label} {dtype} three-pass path: "
+                      f"{time_ms(three)!r} ms  in turns with index_add_ "
+                      f"{time_pair_ms(three, library)!r} ms  queued "
+                      f"{time_queued_ms(three)!r} ms")
             if label == "prefill" and dtype == torch.bfloat16:
                 entry = {
                     "name": "moe_dispatch", "route": "cuda",
@@ -1392,12 +1551,30 @@ def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
                     "replaces": "src/repro/kernels/moe_dispatch.py:36",
                     "launches": launches["moe_dispatch"],
                     "max_abs_err": err_max, "ms": ms,
-                    "kernel_device_ms": dev_ms, "plain_ms": plain,
-                    "bound_ms": bound, "bound_by": bound_by,
-                    "library_ms": lib_ms,
+                    "kernel_device_ms": dev_ms, "queued_ms": queued,
+                    "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": lib_ms, "library_queued_ms": lib_queued,
+                    "ms_in_turns": in_turns[0],
+                    "library_ms_in_turns": in_turns[1],
                     "shape": {"T": t, "D": d, "E": n_experts, "C": c,
                               "kept": n_kept, "dtype": str(dtype)},
+                    "ptxas": ptxas,
                 }
+
+    # the MLP/MoE activation as the reference rounds it (a bfloat16 rounding
+    # after each step of 1 / (1 + exp(-x))) against F.silu, which rounds
+    # once, at Granite's expert buffers in the prefill: what the port pays
+    # in each MoE layer to give the reference's bits
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import _silu
+
+    shape = (n_experts, moe_capacity(prompt_len, top_k, n_experts,
+                                     capacity_factor),
+             get_config(GRANITE_ARCH).expert_d_ff_)
+    g = torch.randn(shape, device=device).to(torch.bfloat16)
+    print(f"timing silu {shape} bfloat16: as the reference rounds it "
+          f"{time_ms(lambda: _silu(g), runs=10)!r} ms  F.silu "
+          f"{time_ms(lambda: F.silu(g), runs=10)!r} ms")
 
     # flash_attention at Granite's prefill: GQA 24/8, Dh 64, causal
     gen = torch.Generator(device="cpu").manual_seed(5)

@@ -3,14 +3,18 @@
 Replaces the TPU kernel :func:`repro.kernels.segment_reduce._segsum_kernel`
 (a one-hot ``Pᵀ @ values`` MXU matmul per row block) with the hand-written
 CUDA C++ kernel ``csrc/segment_sum.cu`` for ``sm_90a``.  The kernel is
-bound by bytes on the H100: each element is read once and added once, so
-it reads rows coalesced and adds each element into a float32 output with
-one atomic, which also takes any id order; see the note in the source.
+bound by bytes on the H100: it reads the rows once, coalesced, sums each
+run of equal ids in registers and across a warp's lanes, and adds a run's
+total into the float32 output with one atomic where the run ends, which
+also takes any id order; see the note in the source.
 
 ``num_segments`` is a run-time integer, not a compile-time constant: word
 count passes each reducer's count of unique keys.  For a tensor on the CPU
 the wrapper computes the plain version :func:`repro_torch.kernels.ref.
-segment_sum_ref`; for a CUDA tensor it launches the kernel or raises.
+segment_sum_ref`; for a CUDA tensor it launches the kernel or raises.  The
+wrapper crosses into C once per call: the C entry zero-fills the output
+on the caller's stream before its launch.  It enters no device context:
+the tensors must be on the current device, or the wrapper raises.
 """
 from __future__ import annotations
 
@@ -64,6 +68,11 @@ def _check(values: torch.Tensor, segment_ids: torch.Tensor,
                          "contiguous")
     if int(num_segments) < 0:
         raise ValueError(f"segment_sum: num_segments={num_segments} < 0")
+    current = torch.cuda.current_device()
+    if values.get_device() != current:
+        raise ValueError(f"segment_sum: values on {values.device}, the current "
+                         f"device is cuda:{current}: call under "
+                         f"torch.cuda.device({values.device})")
 
 
 def segment_sum(
@@ -75,24 +84,41 @@ def segment_sum(
     float32, cast back to the input dtype; ids outside ``[0,
     num_segments)`` are dropped, and ids need not be sorted.  Each kernel
     launch adds one to ``segment_sum.launches``."""
-    if values.device.type == "cpu":
-        return segment_sum_ref(values, segment_ids, num_segments)
-    _check(values, segment_ids, num_segments)
-    n, d = values.shape
+    if not values.is_cuda:
+        if values.device.type == "cpu":
+            return segment_sum_ref(values, segment_ids, num_segments)
+        _check(values, segment_ids, num_segments)  # raises: not cuda
+    # the host's cost of a call is most of the call at the main path's
+    # sizes: every check of _check in one expression of cheap accessors,
+    # and _check, which names the fault, only where one fails
+    dtype = values.dtype
     s = int(num_segments)
-    out = torch.zeros((s, d), dtype=torch.float32, device=values.device)
-    if n and d and s:
-        with torch.cuda.device(values.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = _kernel(values.dtype)(
-                values.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
-                n, d, s, stream,
-            )
+    index = values.get_device()
+    if not (dtype in _ENTRY and segment_ids.dtype == torch.int32
+            and values.dim() == 2 and segment_ids.dim() == 1
+            and segment_ids.get_device() == index
+            and index == torch._C._cuda_getDevice() and s >= 0
+            and values.is_contiguous() and segment_ids.is_contiguous()
+            and segment_ids.size(0) == values.size(0)):
+        _check(values, segment_ids, num_segments)
+    n, d = values.shape
+    # empty_strided: no memory-format argument for the host to resolve
+    out = torch.empty_strided((s, d), (d, 1), dtype=torch.float32,
+                              device=values.device)
+    if s and d:
+        # the raw stream pointer: torch.cuda.current_stream(...).cuda_stream
+        # builds a Stream object on every call, a cost the host pays at
+        # every reducer
+        rc = _kernel(dtype)(
+            values.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), n, d, s,
+            torch._C._cuda_getCurrentRawStream(index),
+        )
         if rc != 0:
             raise RuntimeError(f"segment_sum: kernel launch failed with CUDA "
                                f"error {rc}")
-        segment_sum.launches += 1
-    return out.to(values.dtype)
+        if n:
+            segment_sum.launches += 1
+    return out if dtype == torch.float32 else out.to(dtype)
 
 
 segment_sum.launches = 0

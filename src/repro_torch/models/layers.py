@@ -314,8 +314,17 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.silu is x * logistic(x), and XLA on the CPU expands a bfloat16
+    # logistic into 1 / (1 + exp(-x)) rounded to bfloat16 after every step;
+    # the same steps give the reference's bits (F.silu rounds once, and a
+    # third of bfloat16 silu(g) * u products then differ by an ulp, enough
+    # to flip Granite-MoE's routing downstream)
+    return x * torch.exp(-x).add_(1).reciprocal_()
+
+
 def _act(cfg: ArchConfig, x):
-    return F.silu(x) if cfg.act == "silu" else _gelu(x)
+    return _silu(x) if cfg.act == "silu" else _gelu(x)
 
 
 def mlp_fwd(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -459,8 +468,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     out = torch.zeros((B, T, C), dtype=x.dtype, device=x.device)
     for i in range(K):  # K is tiny (4): unrolled taps, no conv primitive
         out = out + xp[:, i:i + T] * w[i]
-    new_prev = xp[:, -(K - 1):] if K > 1 else prev
-    return out, new_prev
+    if K == 1:
+        return out, prev
+    # the last K-1 rows, as a copy where T > 1 (a prefill): a view would
+    # keep the whole (B, T+K-1, C) ``xp`` alive as long as the carried state
+    # (a jax slice is a copy).  A decode step's ``xp`` is K rows, and its
+    # state is copied into the cache at once.
+    new_prev = xp[:, -(K - 1):]
+    return out, new_prev.clone() if T > 1 else new_prev
 
 
 def rglru_fwd(

@@ -204,15 +204,22 @@ def _block_fwd(cfg, blk: Block, p: Params, x, positions, cache, mode,
         )
     else:
         raise ValueError(blk.mixer)
-    x = x + y
+    if blk.ffn == "none":
+        return x + y, new_cache, None
+    # the second norm reads the residual sum before it is rounded to its
+    # dtype (jax's promotion of x's and y's), as XLA's fusion of the add
+    # into the norm computes it
+    dtype = torch.promote_types(x.dtype, y.dtype)
+    total = x.float() + y
+    h = L.apply_norm(cfg, p["norm2"], total).to(dtype)
+    x = total.to(dtype)
     aux = None
     if blk.ffn == "dense":
-        x = x + L.mlp_fwd(cfg, p["ffn"], L.apply_norm(cfg, p["norm2"], x))
+        x = x + L.mlp_fwd(cfg, p["ffn"], h)
     elif blk.ffn == "moe":
-        y, aux = L.moe_fwd(cfg, p["ffn"], L.apply_norm(cfg, p["norm2"], x),
-                           use_kernel=use_kernels)
+        y, aux = L.moe_fwd(cfg, p["ffn"], h, use_kernel=use_kernels)
         x = x + y
-    elif blk.ffn != "none":
+    else:
         raise ValueError(blk.ffn)
     return x, new_cache, aux
 

@@ -117,6 +117,86 @@ def test_word_count_reduce_runs_the_kernel(card):
     assert segment_sum.launches == before + 1
 
 
+def _exact_segment_sum(values, ids, s):
+    """float64 sums of integer-valued rows by id on the host, ids outside
+    [0, s) dropped: the exact answer below 2^24."""
+    keep = (ids >= 0) & (ids < s)
+    out = np.zeros((s, values.shape[1]))
+    np.add.at(out, ids[keep], values[keep])
+    return out
+
+
+def test_segment_sum_hot_id_is_exact(card):
+    """A reducer without in-mapper combining: ~1M sorted Zipf(1.4) ids
+    whose hottest id holds about a third of the rows, float32 ones.  The
+    kernel adds a run's sum once where it ends, across lanes and warps;
+    integer sums below 2^24 are exact in any order."""
+    rng = np.random.default_rng(2)
+    n, s = 1_000_000, 65_536
+    ids = (np.sort(np.minimum(rng.zipf(1.4, size=n), s) - 1)).astype(np.int32)
+    assert np.bincount(ids).max() > n // 4
+    got = segment_sum(torch.ones(n, 1, device=card),
+                      torch.from_numpy(ids).to(card), s)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), _exact_segment_sum(np.ones((n, 1)), ids, s))
+
+
+@pytest.mark.parametrize("d", [1, 8, 33])
+@pytest.mark.parametrize("n", [257, 300_001])
+def test_segment_sum_one_id_for_every_row(card, n, d):
+    """One run over every row: it crosses every lane, warp and block."""
+    values = np.random.default_rng(3).integers(-3, 4, size=(n, d))
+    ids = np.zeros(n, np.int32)
+    got = segment_sum(torch.from_numpy(values.astype(np.float32)).to(card),
+                      torch.from_numpy(ids).to(card), 1)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _exact_segment_sum(values, ids, 1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d", [(10_007, 1), (10_007, 4), (600_011, 1)])
+@pytest.mark.parametrize("ids_offset,values_offset", [
+    (1, 0), (2, 2), (3, 1), (3, 3), (0, 1)])
+def test_segment_sum_unaligned_storage(card, ids_offset, values_offset, n, d,
+                                       dtype):
+    """ids and values whose storage offsets are not 16-byte aligned (views
+    into larger tensors): the kernel reads a ragged head and tail with
+    scalar loads and the rest with vector loads where both line up (4 rows
+    a lane at 10,007 rows, 8 at 600,011)."""
+    rng = np.random.default_rng(4)
+    s = 300
+    ids = np.sort(rng.integers(-1, s + 1, size=n + ids_offset)).astype(np.int32)
+    values = rng.integers(-8, 9, size=(n + values_offset, d))
+    i = torch.from_numpy(ids).to(card)[ids_offset:]
+    v = torch.from_numpy(values.astype(np.float32)).to(
+        card, getattr(torch, dtype))[values_offset:]
+    assert i.storage_offset() == ids_offset and i.is_contiguous()
+    got = segment_sum(v, i, s)
+    want = _exact_segment_sum(values[values_offset:], ids[ids_offset:], s)
+    # bfloat16 holds integers up to 256 exactly; larger sums round once
+    np.testing.assert_allclose(got.float().cpu().numpy(), want,
+                               rtol=0 if dtype == "float32" else 2 ** -8,
+                               atol=0)
+
+
+@pytest.mark.parametrize("d", [1, 16])
+def test_segment_sum_out_of_range_ids_break_runs(card, d):
+    """-1 and S+3 in the middle of runs of a valid id: they are dropped and
+    the valid rows on both sides still count, as separate runs."""
+    n, s = 50_000, 40
+    ids = np.repeat(np.arange(s, dtype=np.int32), n // s)
+    ids[5::97] = -1
+    ids[11::89] = s + 3
+    values = np.random.default_rng(5).integers(1, 6, size=(ids.size, d))
+    got = segment_sum(torch.from_numpy(values.astype(np.float32)).to(card),
+                      torch.from_numpy(ids).to(card), s)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _exact_segment_sum(values, ids, s))
+    plain = segment_sum_ref(torch.from_numpy(values.astype(np.float32)),
+                            torch.from_numpy(ids), s)
+    np.testing.assert_array_equal(got.cpu().numpy(), plain.numpy())
+
+
 # (B, Hq, Hkv, T, S, Dh, causal, window, q_offset): the reference kernel
 # tests' table, then RecurrentGemma's shapes (MQA, Dh 256, window) with a
 # ragged last tile, and a prompt shorter than one tile
@@ -524,6 +604,133 @@ def test_moe_dispatch_wrapper_raises(card):
         moe_dispatch(t, i, i.cpu(), 2, 4)
     with pytest.raises(ValueError, match="slot_ids must be"):
         moe_dispatch(t, i, i[:4], 2, 4)
+
+
+def test_reduce_wrappers_raise_off_the_current_device(card, monkeypatch):
+    """segment_sum and moe_dispatch enter no device context: where their
+    tensors lie on another device than the current one, the launch would
+    go to the current device with the other's pointers, so they raise.
+    On one card the current device is made to read as another."""
+    v = torch.ones(64, 8, device=card)
+    i = torch.zeros(64, dtype=torch.int32, device=card)
+    other = v.get_device() + 1
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: other)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: other)
+    with pytest.raises(ValueError, match="current device is cuda:"):
+        segment_sum(v, i, 3)
+    with pytest.raises(ValueError, match="current device is cuda:"):
+        moe_dispatch(v, i, i, 2, 4)
+
+
+def test_reduce_wrappers_on_a_second_card(card):
+    """On a card that is not the current device the two wrappers raise;
+    under its device context they launch there and equal the plain
+    versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card")
+    second = torch.device("cuda", 1)
+    v = _normal((300, 24), 0, second, "float32")
+    i = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 7, size=300).astype(np.int32)).to(second)
+    slots = compute_slots(i, 7).clamp(max=99).int()
+    with pytest.raises(ValueError, match="current device is cuda:0"):
+        segment_sum(v, i, 7)
+    with pytest.raises(ValueError, match="current device is cuda:0"):
+        moe_dispatch(v, i, slots, 7, 100)
+    with torch.cuda.device(second):
+        got = segment_sum(v, i, 7)
+        buf = moe_dispatch(v, i, slots, 7, 100)
+        torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), segment_sum_ref(v.cpu(), i.cpu(), 7),
+                               **TOL["float32"])
+    assert torch.equal(buf.cpu(), moe_dispatch_ref(v.cpu(), i.cpu(),
+                                                   slots.cpu(), 7, 100))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D,E,C", [
+    (24_000, 1536, 40, 750),  # Granite's prefill, the served capacity rule
+    (333, 33, 5, 20),  # D no multiple of the vector width
+    (500, 24, 6, 30),
+])
+def test_moe_dispatch_repeated_pairs_are_row_order_sums(card, dtype, T, D, E,
+                                                       C):
+    """Rows that share a pair are summed in float32 in row order, as the
+    plain version sums them on the CPU: equal to it computed on a CPU copy
+    bit for bit, and the same from call to call."""
+    tokens, ids, slots = _moe_inputs(T, D, E, C, "repeated", dtype, card)
+    kept = slots < C
+    pairs = ids[kept].long() * C + slots[kept].long()
+    assert int(kept.sum()) > pairs.unique().numel()  # some pairs repeat
+    got = moe_dispatch(tokens, ids, slots, E, C)
+    again = moe_dispatch(tokens, ids, slots, E, C)
+    torch.cuda.synchronize()
+    want = moe_dispatch_ref(tokens.cpu(), ids.cpu(), slots.cpu(), E, C)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_dispatch_pairs_far_apart(card, dtype):
+    """A pair's rows at the first row, the middle and the last of 20,000,
+    and a pair of 70 rows (more than a warp's scan step), against the plain
+    version on a CPU copy, bit for bit."""
+    T, D, E, C = 20_000, 264, 4, 8
+    tokens = _normal((T, D), 6, card, dtype)
+    ids = torch.full((T,), -1, dtype=torch.int32)
+    slots = torch.zeros((T,), dtype=torch.int32)
+    ids[[0, T // 2, T - 1]] = 2
+    slots[[0, T // 2, T - 1]] = 5
+    many = torch.arange(100, 20_000, 283)[:70]
+    ids[many], slots[many] = 1, 0
+    ids[7], slots[7] = 3, 7  # a pair of one row
+    ids, slots = ids.to(card), slots.to(card)
+    got = moe_dispatch(tokens, ids, slots, E, C)
+    want = moe_dispatch_ref(tokens.cpu(), ids.cpu(), slots.cpu(), E, C)
+    assert torch.equal(got.cpu(), want)
+    assert not bool(got[0].any()) and bool(got[2, 5].any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D,E,C", [
+    (32, 1536, 40, 8),  # Granite's decode step
+    (2048, 64, 64, 64),  # at both of the one-launch path's limits
+    (333, 33, 5, 20),
+])
+def test_moe_dispatch_one_launch_path_equals_the_three_pass_path(
+        card, dtype, T, D, E, C):
+    """A small dispatch runs both passes in one launch with its index in
+    shared memory; given a workspace, the C entry runs the memset, index
+    and gather passes instead.  The two agree bit for bit, repeated pairs
+    included."""
+    from repro_torch.kernels.moe_dispatch import _kernel
+
+    tokens, ids, slots = _moe_inputs(T, D, E, C, "repeated", dtype, card)
+    got = moe_dispatch(tokens, ids, slots, E, C)
+    out = torch.empty_like(got)
+    tables = torch.empty(2 * E * C, dtype=torch.int32, device=card)
+    rc = _kernel(tokens.dtype)(
+        tokens.data_ptr(), ids.data_ptr(), slots.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), T, D, E, C, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(got, out)
+    assert torch.equal(got.cpu(), moe_dispatch_ref(tokens.cpu(), ids.cpu(),
+                                                   slots.cpu(), E, C))
+
+
+@pytest.mark.parametrize("T,E,C", [(0, 4, 8), (16, 0, 8), (16, 4, 0)])
+def test_moe_dispatch_empty_shapes(card, T, E, C):
+    """No rows gives zero buffers (the kernel writes them); no experts or
+    no slots gives an empty result and launches nothing."""
+    tokens = _normal((T, 16), 7, card, "bfloat16")
+    ids = torch.zeros(T, dtype=torch.int32, device=card)
+    before = moe_dispatch.launches
+    got = moe_dispatch(tokens, ids, ids, E, C)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (E, C, 16) and got.dtype == torch.bfloat16
+    assert not bool(got.any())
+    assert moe_dispatch.launches == before + (1 if E * C else 0)
 
 
 def _granite_runs(card, params, cfg, toks, use_kernels):

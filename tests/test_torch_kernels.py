@@ -410,6 +410,71 @@ def test_moe_duplicate_pairs_are_summed(dtype):
     np.testing.assert_allclose(got, want, **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_dispatch_plain_version_sums_rows_in_row_order(dtype):
+    """On the CPU the plain version adds the rows of a repeated pair in row
+    order, in float32: equal bit for bit to a sequential float32 sum.  The
+    card's kernel sums them in the same order, and its card test holds it
+    to the plain version on a CPU copy bit for bit."""
+    rng = np.random.default_rng(9)
+    T, D, E, C = 24_000, 48, 6, 40
+    # magnitudes over six decades, so that another order rounds otherwise
+    tokens = (rng.normal(size=(T, D)) * 10.0 ** rng.integers(-3, 3, size=(T, 1))
+              ).astype(np.float32)
+    ids = rng.integers(0, E, size=T).astype(np.int32)
+    slots = rng.integers(0, C + 3, size=T).astype(np.int32)  # ~100 a pair
+    tt = torch.from_numpy(tokens).to(getattr(torch, dtype))
+    got = moe_dispatch_ref(tt, torch.from_numpy(ids), torch.from_numpy(slots),
+                           E, C)
+    keep = slots < C
+    want = np.zeros((E, C, D), np.float32)
+    np.add.at(want, (ids[keep], slots[keep]), tt.float().numpy()[keep])
+    want = torch.from_numpy(want).to(getattr(torch, dtype))
+    assert torch.equal(got, want)
+    shuffled = np.zeros((E, C, D), np.float32)
+    order = rng.permutation(np.nonzero(keep)[0])
+    np.add.at(shuffled, (ids[order], slots[order]), tt.float().numpy()[order])
+    assert not np.array_equal(shuffled, want.float().numpy())
+
+
+@pytest.mark.parametrize("name,entries,zero_fills", [
+    ("segment_sum", ("segment_sum_f32", "segment_sum_bf16"), "out"),
+    ("moe_dispatch", ("moe_dispatch_f32", "moe_dispatch_bf16"), "tables"),
+])
+def test_reduce_kernels_enter_c_once_and_zero_fill_there(name, entries,
+                                                         zero_fills):
+    """Each entry the wrapper names is a C entry of the kernel source, and
+    the source zero-fills its buffer on the caller's stream with
+    cudaMemsetAsync, so the wrapper allocates it with ``torch.empty`` and
+    makes one ctypes call; the wrapper enters no ``torch.cuda.device``
+    context and makes no ``torch.zeros`` of its own."""
+    import importlib
+    import inspect
+    import re
+
+    module = importlib.import_module(
+        {"segment_sum": "repro_torch.kernels.segment_reduce",
+         "moe_dispatch": "repro_torch.kernels.moe_dispatch"}[name])
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    assert set(module._ENTRY.values()) == set(entries)
+    for entry in entries:
+        assert f'extern "C" int {entry}(' in src
+    assert re.search(rf"cudaMemsetAsync\(\s*{zero_fills},\s*0,", src)
+    wrapper = inspect.getsource(getattr(module, name))
+    assert "torch.cuda.device(" not in wrapper
+    assert "torch.zeros" not in wrapper
+    assert wrapper.count("_kernel(") == 1
+
+
+def test_moe_dispatch_small_path_tables_fit_a_launch():
+    """The one-launch path's index, 2·E·C int32 at the largest dispatch the
+    wrapper sends it, fits the 48 KB of shared memory a launch may take
+    without opting in; a larger one would fail to launch, and raise."""
+    from repro_torch.kernels.moe_dispatch import _SMALL_PAIRS
+
+    assert 2 * _SMALL_PAIRS * 4 <= 48 * 1024
+
+
 def test_moe_out_of_range_ids_and_slots_are_dropped():
     """Expert ids outside [0, E) and slots outside [0, C), negative ones
     included, are dropped, as the TPU kernel drops them (the reference's

@@ -259,6 +259,26 @@ def test_mamba_fwd_matches(with_state):
         assert gstate is None and wstate is None
 
 
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_causal_conv_state_owns_its_storage(with_prev):
+    """The carried conv state is a copy of the last K-1 rows, not a view of
+    the (B, T+K-1, C) concatenation: a view would keep every layer's conv
+    input alive through a prefill (a jax slice is a copy).  The values are
+    the reference's."""
+    B, T, C, K = 2, 9, 6, 4
+    x, w = _x((B, T, C), seed=7), _x((K, C), seed=8)
+    prev = _x((B, K - 1, C), seed=9) if with_prev else None
+    want_out, want_prev = RL._causal_conv(
+        jnp.asarray(x), jnp.asarray(w),
+        None if prev is None else jnp.asarray(prev))
+    out, new_prev = L._causal_conv(torch.from_numpy(x), torch.from_numpy(w),
+                                   None if prev is None else torch.from_numpy(prev))
+    assert new_prev.is_contiguous()
+    assert new_prev.untyped_storage().nbytes() == B * (K - 1) * C * 4
+    _assert_close(out, want_out)
+    _assert_close(new_prev, want_prev, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_softplus_matches_jax(dtype):
     """``F.softplus``, which ``mamba_fwd`` takes for Δ, returns x above 20
