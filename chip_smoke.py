@@ -49,7 +49,14 @@ Phases:
    decode step.  The launch counts are zeroed just before and read just
    after.
 6. ``flash_attention`` and ``rglru_scan`` against their plain versions at
-   the served shapes, in bfloat16 and float32, with times (for
+   the served shapes, in bfloat16 and float32 (``rglru_scan`` also at the
+   edges of its chunking: T at and around the chunk lengths, D off the
+   128-channel tile, B = 3, a near 1 and near 0, near 1 also at 32 and
+   33 chunks; and two calls equal bit for bit), with both ``rglru_scan``
+   kernels' ``ptxas`` registers and spills, device times summed over its
+   two passes and the launches of each a call as the profiler recorded
+   them (both at the prefill, the rescan alone at a decode step), and
+   times (for
    ``flash_attention`` also one call alone: CUDA events around a single
    launch after a synchronize, median of 20; the launches queued on the
    card behind a sleep kernel; and the CUDA-core kernel that served bf16
@@ -67,7 +74,11 @@ Phases:
    device memory under 80 GB.
 8. ``mamba_scan`` against its plain version at the served shapes (prefills
    of 17, 2048 and 3000 tokens in bfloat16 and float32, with and without
-   ``h0``; the float32 decode step against bfloat16 A and D), with times;
+   ``h0``; the float32 decode step against bfloat16 A and D) and at the
+   edges of its tiling (T around the 64-step tile and past the 3-stage
+   ring, d_inner off the 32-channel tile, d_state 1 to 32, B = 3, A and D
+   in both dtypes, rows off 16 bytes; two calls equal bit for bit), with
+   its ``ptxas`` registers and spills and times;
    then a full-width cut to depth 4 in float32, kernels against plain
    versions, as in phase 6.
 9. Serving Granite-MoE-3B-A800M, after Falcon-Mamba's weights are freed: 32
@@ -272,13 +283,15 @@ def time_queued_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
-def kernel_device_ms(fn, names, calls: int = 20):
+def kernel_device_ms(fn, names, calls: int = 20, recorded_per_call=None):
     """Mean device time of one call of ``fn``, from ``torch.profiler`` over
     ``calls`` calls: for each kernel name in ``names`` (a substring of the
     CUDA kernels' names; one string or several, for a call that launches
     several kernels or one of several), its device time over the launches
     the profiler recorded, summed over the names it recorded; ``None``
-    where it records no device time."""
+    where it records no device time.  Where ``recorded_per_call`` is a
+    dict, it gets each name's launches the profiler recorded, over
+    ``calls``; it stays empty where the profiler cannot trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -301,11 +314,16 @@ def kernel_device_ms(fn, names, calls: int = 20):
                 total_us += (getattr(ev, "device_time_total", None)
                              or getattr(ev, "cuda_time_total", 0.0))
                 recorded += ev.count
+        if recorded_per_call is not None:
+            recorded_per_call[name] = recorded / calls
         if recorded and recorded != calls:
             print(f"  profiler recorded {recorded} launches of {name} in "
                   f"{calls} calls")
         if total_us > 0:
             per_call = (per_call or 0.0) + total_us / recorded / 1e3
+            if len(names) > 1:
+                print(f"  {name}: {total_us / recorded / 1e3!r} ms a launch, "
+                      f"{recorded} launches recorded")
     if per_call is None:
         print(f"  profiler recorded no launch of {' or '.join(names)} in "
               f"{calls} calls")
@@ -424,11 +442,15 @@ def print_ptxas(name: str):
 
     usage = {}
     for fn, (regs, st, ld) in sorted(ptxas_usage(_build.build_log(name)).items()):
-        m = re.search(rf"{name}_[a-z]+_kernel", fn)
+        m = re.search(rf"{name}_[a-z]+_kernel|{name}_kernel", fn)
         kind = m.group(0) if m else fn
         dtype = "bf16" if "bfloat16" in fn else ("f32" if "If" in fn else "")
         arg = re.search(r"Li(\d+)E", fn)  # an int template argument
-        if arg and "rows" in kind:
+        if arg and kind == "mamba_scan_kernel":
+            g, ng, steps = re.findall(r"Li(\d+)E", fn)[:3]
+            width = (f"{g} states a thread, {ng} warps, {steps}-step tiles, "
+                     + ("cp.async" if "Lb1E" in fn else "plain loads"))
+        elif arg and "rows" in kind:
             width = f"{arg.group(1)} rows a lane"
         elif (arg and arg.group(1) != "1") or "3Vec" in fn:
             width = "vector"
@@ -744,6 +766,9 @@ def device_activity(prof):
     return busy_us, len(spans), by_name
 
 
+#: rglru_scan's kernels: the chunk pairs (skipped where one chunk covers
+#: T) and the rescan, launched once each a call
+RGLRU_KERNELS = ("rglru_scan_summary_kernel", "rglru_scan_output_kernel")
 #: moe_dispatch's kernels: the index and gather passes, launched once
 #: each a call, or the one-launch path of a small dispatch
 MOE_KERNELS = ("moe_dispatch_index_kernel", "moe_dispatch_gather_kernel",
@@ -752,7 +777,7 @@ MOE_KERNELS = ("moe_dispatch_index_kernel", "moe_dispatch_gather_kernel",
 #: call, or moe_dispatch's two
 KERNEL_NAMES = {"segment_sum": ("segment_sum_",),
                 "flash_attention": ("flash_attention_kernel",),
-                "rglru_scan": ("rglru_scan_kernel",),
+                "rglru_scan": RGLRU_KERNELS,
                 "mamba_scan": ("mamba_scan_kernel",),
                 "moe_dispatch": MOE_KERNELS}
 
@@ -1080,6 +1105,30 @@ def rglru_bound_ms(x, has_h0):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+#: rglru_scan's edges: (B, T, D, a) with T at and around the chunk
+#: lengths the wrapper picks (16 steps and more), D off the 128-channel
+#: tile, B = 3, a near 1 and near 0; near 1 also at 33 and 32 chunks,
+#: where pass 2 folds pairs past its groups of 8 while the carry survives
+RGLRU_EDGES = (
+    (1, 1, 130, "sigmoid"), (3, 1, 33, "near_zero"), (1, 15, 256, "sigmoid"),
+    (1, 16, 256, "near_one"), (1, 17, 256, "sigmoid"), (3, 33, 130, "near_zero"),
+    (2, 100, 200, "near_one"), (1, 1025, 256, "sigmoid"),
+    (1, 1025, 256, "near_one"), (3, 3000, 4096, "sigmoid"),
+    (1, 3000, 4096, "near_one"), (1, 2049, 4096, "near_zero"),
+)
+
+
+def rglru_gate(n, kind):
+    """a in (0, 1) from N(0, 1) draws ``n``: their sigmoid, or 1 - 1e-4·u or
+    1e-4·u with u in (0.5, 1), where a chunk's product underflows to 0."""
+    import torch
+
+    if kind == "sigmoid":
+        return torch.sigmoid(n)
+    u = 0.5 + 0.5 * torch.sigmoid(n)
+    return 1.0 - 1e-4 * u if kind == "near_one" else 1e-4 * u
+
+
 def phase_lm_kernels(device, launches, lengths=(17, 2049, 3000), hq=16, dh=256,
                      window=2048, width=4096, slots=SERVE_SLOTS):
     """flash_attention and rglru_scan against their plain versions at the
@@ -1088,6 +1137,8 @@ def phase_lm_kernels(device, launches, lengths=(17, 2049, 3000), hq=16, dh=256,
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref, rglru_scan_ref
+    from repro_torch.kernels.rglru_scan import _geometry as rglru_geometry
+    from repro_torch.kernels.rglru_scan import chunking as rglru_chunking
     from repro_torch.kernels.rglru_scan import rglru_scan
 
     print("== phase 6a: flash_attention and rglru_scan against their plain "
@@ -1139,6 +1190,34 @@ def phase_lm_kernels(device, launches, lengths=(17, 2049, 3000), hq=16, dh=256,
                   f"|err| y {err_y!r} h_T {err_h!r} (atol {atol}, rtol {rtol})")
             timed[("rglru_scan", dtype, label)] = (x, a, h0)
 
+    # the chunked scan's edges: T at and around the chunk lengths the
+    # wrapper picks, D off the 128-channel tile, B = 3, a near 1 and near 0
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = KERNEL_TOL[str(dtype)]
+        edge_err = 0.0
+        for b, t_len, d, kind in RGLRU_EDGES:
+            x = normal(b, t_len, d, dtype=dtype)
+            a = rglru_gate(normal(b, t_len, d, dtype=torch.float32), kind).to(dtype)
+            for h0 in (None, normal(b, d, dtype=torch.float32)):
+                y, h_t = rglru_scan(x, a, h0)
+                _sync(device)
+                y_ref, h_ref = rglru_scan_ref(x, a, h0)
+                ok_y, err_y = _close(y, y_ref, atol, rtol)
+                ok_h, err_h = _close(h_t, h_ref, atol, rtol)
+                check(ok_y and ok_h, f"rglru_scan ({b},{t_len},{d}) a {kind} "
+                      f"{dtype} h0 {h0 is not None}: max |err| y {err_y} h_T "
+                      f"{err_h} over atol {atol} rtol {rtol}")
+                edge_err = max(edge_err, err_y, err_h)
+        errs["rglru_scan"] = max(errs["rglru_scan"], edge_err)
+        print(f"rglru_scan edges {dtype}: {len(RGLRU_EDGES)} shapes "
+              f"{RGLRU_EDGES} with and without h0: max |err| {edge_err!r} "
+              f"(atol {atol}, rtol {rtol})")
+    x, a, h0 = timed[("rglru_scan", torch.bfloat16, "prefill")]
+    first, second = rglru_scan(x, a, h0), rglru_scan(x, a, h0)
+    _sync(device)
+    check(all(torch.equal(u, w) for u, w in zip(first, second)),
+          "rglru_scan: two calls at the served prefill differ")
+
     # times at the served shapes: the bf16 prefill of the longest prompt,
     # and the decode step, whose recurrence runs in float32 (the float32
     # serving cache promotes it, as in the reference)
@@ -1174,30 +1253,51 @@ def phase_lm_kernels(device, launches, lengths=(17, 2049, 3000), hq=16, dh=256,
         "shape": {"B": 1, "Hq": hq, "Hkv": 1, "T": t_len, "S": t_len,
                   "Dh": dh, "window": window, "dtype": str(q.dtype)},
     }]
+    rglru = {"name": "rglru_scan", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+             "replaces": "src/repro/kernels/rglru_scan.py:25",
+             "launches": launches["rglru_scan"],
+             "max_abs_err": errs["rglru_scan"],
+             "ptxas": print_ptxas("rglru_scan")}
     for key in (("rglru_scan", torch.bfloat16, "prefill"),
                 ("rglru_scan", torch.float32, "decode")):
         x, a, h0 = timed[key]
         ms = time_ms(lambda: rglru_scan(x, a, h0), runs=10, per_run=5)
-        dev_ms = kernel_device_ms(lambda: rglru_scan(x, a, h0),
-                                  "rglru_scan_kernel", calls=5)
+        # the kernels a call launches, as the profiler recorded them: both
+        # passes at the prefill, the rescan alone at a decode step
+        per_name = {}
+        dev_ms = kernel_device_ms(lambda: rglru_scan(x, a, h0), RGLRU_KERNELS,
+                                  calls=5, recorded_per_call=per_name)
+        summary, output = (per_name.get(n, 0.0) for n in RGLRU_KERNELS)
+        check(output > 0 and (summary > 0) == (key[2] == "prefill"),
+              f"rglru_scan {key[2]}: the profiler recorded {per_name} "
+              f"launches a call of {RGLRU_KERNELS}: need both kernels at "
+              f"the prefill and the rescan alone at a decode step")
+        queued = time_queued_ms(lambda: rglru_scan(x, a, h0))
         plain = time_ms(lambda: rglru_scan_ref(x, a, h0), runs=3, per_run=1,
                         warmup=1)
         bound, bound_by = rglru_bound_ms(x, True)
+        chunk, n_chunks = rglru_chunking(*x.shape,
+                                         *rglru_geometry(x.get_device()))
         print(f"timing rglru_scan {key[2]} {tuple(x.shape)} {key[1]}: wrapper "
-              f"{ms!r} ms  kernel (device) {dev_ms!r} ms  plain {plain!r} ms  "
-              f"library none  bound {bound!r} ms ({bound_by})")
+              f"{ms!r} ms  kernels (device) {dev_ms!r} ms  queued on the card "
+              f"{queued!r} ms  plain {plain!r} ms  library none  bound "
+              f"{bound!r} ms ({bound_by}); the wrapper's chunking: {n_chunks} "
+              f"chunks of {chunk} steps; recorded launches a call {per_name}")
+        # the profiler may miss launches (on an H100 it recorded 3 or 4
+        # of 5 calls'): count the kernels it saw, and give its launches a
+        # call
+        times = {"ms": ms, "kernel_device_ms": dev_ms, "queued_ms": queued,
+                 "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                 "kernels_per_call": (summary > 0) + (output > 0),
+                 "recorded_launches_per_call": per_name,
+                 "shape": {"B": x.shape[0], "T": x.shape[1], "D": width,
+                           "dtype": str(x.dtype)}}
         if key[2] == "prefill":
-            entries.append({
-                "name": "rglru_scan", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
-                "replaces": "src/repro/kernels/rglru_scan.py:25",
-                "launches": launches["rglru_scan"],
-                "max_abs_err": errs["rglru_scan"], "ms": ms,
-                "kernel_device_ms": dev_ms, "plain_ms": plain,
-                "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-                "shape": {"B": 1, "T": x.shape[1], "D": width,
-                          "dtype": str(x.dtype)},
-            })
+            rglru.update(times, library_ms=None)
+        else:
+            rglru["decode"] = times
+    entries.append(rglru)
     return entries
 
 
@@ -1219,6 +1319,48 @@ def mamba_bound_ms(b, t_len, d_inner, d_state, act_elem, param_elem,
     if bytes_ms >= ops_ms:
         return bytes_ms, "bytes", sfu_ms
     return ops_ms, "operations", sfu_ms
+
+
+#: mamba_scan's edges: (B, T, d_inner, d_state) with T inside, at and
+#: around the 64-step time tile and past the 3-stage ring, d_inner off the
+#: 32-channel tile, d_state 1, 5, 16 and 32, B = 3
+MAMBA_EDGES = (
+    (1, 31, 64, 16), (1, 63, 64, 16), (1, 64, 64, 16), (1, 65, 64, 16),
+    (2, 128, 96, 16), (1, 129, 32, 16), (3, 193, 100, 5), (3, 200, 33, 1),
+    (2, 130, 20, 32), (1, 1, 33, 32), (3, 1, 40, 5),
+)
+
+
+def mamba_edge_inputs(normal, b, t_len, di, ds, dtype, param):
+    """x, Δ = softplus(N), A = -softplus(N), B, C, D and h0: activations in
+    ``dtype``, A and D in ``param``."""
+    import torch
+    import torch.nn.functional as F
+
+    return (normal(b, t_len, di, dtype=dtype),
+            F.softplus(normal(b, t_len, di)).to(dtype),
+            (-F.softplus(normal(di, ds))).to(param),
+            normal(b, t_len, ds, dtype=dtype), normal(b, t_len, ds, dtype=dtype),
+            normal(di, dtype=param), normal(b, di, ds, dtype=torch.float32))
+
+
+def mamba_against_plain(args, atol, rtol, label):
+    """The kernel against its plain version on ``args``; fails past the
+    tolerance; returns the largest error of y and h_T."""
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.ref import mamba_scan_ref
+
+    y, h_t = mamba_scan(*args)
+    _sync(args[0].device)
+    y_ref, h_ref = mamba_scan_ref(*args)
+    ok_y, err_y = _close(y, y_ref, atol, rtol)
+    ok_h, err_h = _close(h_t, h_ref, atol, rtol)
+    check(ok_y and ok_h and y.dtype == args[0].dtype
+          and h_t.dtype == torch.float32,
+          f"mamba_scan {label}: max |err| y {err_y} h_T {err_h} over atol "
+          f"{atol} rtol {rtol}")
+    return max(err_y, err_h)
 
 
 def phase_mamba_kernel(device, launches, lengths=(17, 2048, 3000),
@@ -1259,24 +1401,59 @@ def phase_mamba_kernel(device, launches, lengths=(17, 2048, 3000),
     for b, t_len, dtype, with_h0 in cases:
         args = inputs(b, t_len, dtype, with_h0)
         atol, rtol = MAMBA_TOL[str(dtype)]
-        y, h_t = mamba_scan(*args)
-        _sync(device)
-        y_ref, h_ref = mamba_scan_ref(*args)
-        ok_y, err_y = _close(y, y_ref, atol, rtol)
-        ok_h, err_h = _close(h_t, h_ref, atol, rtol)
-        check(ok_y and ok_h and y.dtype == dtype and h_t.dtype == torch.float32,
-              f"mamba_scan ({b},{t_len},{d_inner},{d_state}) {dtype} h0 "
-              f"{with_h0}: max |err| y {err_y} h_T {err_h} over atol {atol} "
-              f"rtol {rtol}")
-        err_max = max(err_max, err_y, err_h)
+        err = mamba_against_plain(args, atol, rtol,
+                                  f"({b},{t_len},{d_inner},{d_state}) {dtype} "
+                                  f"h0 {with_h0}")
+        err_max = max(err_max, err)
         print(f"mamba_scan ({b},{t_len},{d_inner},{d_state}) {dtype}, A and D "
-              f"bfloat16, h0 {with_h0}: max |err| y {err_y!r} h_T {err_h!r} "
-              f"(atol {atol}, rtol {rtol})")
+              f"bfloat16, h0 {with_h0}: max |err| {err!r} (atol {atol}, rtol "
+              f"{rtol})")
         if with_h0 and (b, t_len, dtype) in ((1, timed_len, torch.bfloat16),
                                             (slots, 1, torch.float32)):
             timed["prefill" if t_len > 1 else "decode"] = args
 
-    entry = None
+    # the tiling's edges: T at and around the 64-step time tile and past the
+    # 3-stage ring, d_inner off the 32-channel tile, d_state 1 to 32, B = 3;
+    # A and D in float32 and in bfloat16
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = MAMBA_TOL[str(dtype)]
+        edge_err = 0.0
+        for b, t_len, di, ds in MAMBA_EDGES:
+            for param in (torch.bfloat16, torch.float32):
+                args = mamba_edge_inputs(normal, b, t_len, di, ds, dtype, param)
+                edge_err = max(edge_err, mamba_against_plain(
+                    args, atol, rtol, f"({b},{t_len},{di},{ds}) {dtype} A and "
+                    f"D {param}"))
+        # rows off 16 bytes: x and delta one element into their storage, B
+        # and C views of a 13-wide projection (the plain-load staging)
+        x, delta, A, Bc, Cc, D, h0 = mamba_edge_inputs(normal, 2, 70, 36, 5,
+                                                       dtype, torch.bfloat16)
+        flat = torch.empty(2 * x.numel() + 1, device=device, dtype=dtype)
+        xs = flat[1:1 + x.numel()].view(x.shape)
+        ds_ = flat[1 + x.numel():].view(x.shape)
+        xs.copy_(x)
+        ds_.copy_(delta)
+        proj = normal(2, 70, 13, dtype=dtype)
+        _, Bc, Cc = torch.split(proj, [3, 5, 5], dim=-1)
+        edge_err = max(edge_err, mamba_against_plain(
+            (xs, ds_, A, Bc, Cc, D, h0), atol, rtol,
+            f"unaligned rows {dtype}"))
+        err_max = max(err_max, edge_err)
+        print(f"mamba_scan edges {dtype}: {len(MAMBA_EDGES)} shapes "
+              f"{MAMBA_EDGES} with A and D in bfloat16 and float32, and "
+              f"unaligned rows: max |err| {edge_err!r} (atol {atol}, rtol "
+              f"{rtol})")
+    args = timed["prefill"]
+    first, second = mamba_scan(*args), mamba_scan(*args)
+    _sync(device)
+    check(all(torch.equal(u, w) for u, w in zip(first, second)),
+          "mamba_scan: two calls at the served prefill differ")
+
+    entry = {"name": "mamba_scan", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+             "replaces": "src/repro/kernels/mamba_scan.py:27",
+             "launches": launches["mamba_scan"], "max_abs_err": err_max,
+             "ptxas": print_ptxas("mamba_scan")}
     for label in ("prefill", "decode"):
         args = timed[label]
         x, h0 = args[0], args[-1]
@@ -1284,27 +1461,27 @@ def phase_mamba_kernel(device, launches, lengths=(17, 2048, 3000),
         ms = time_ms(lambda: mamba_scan(*args), runs=10, per_run=5)
         dev_ms = kernel_device_ms(lambda: mamba_scan(*args),
                                   "mamba_scan_kernel", calls=5)
+        queued = time_queued_ms(lambda: mamba_scan(*args))
         plain = time_ms(lambda: mamba_scan_ref(*args), runs=3, per_run=1,
                         warmup=1)
         bound, bound_by, sfu = mamba_bound_ms(b, t_len, d_inner, d_state,
                                               x.element_size(), 2, True)
         print(f"timing mamba_scan {label} {tuple(x.shape)} d_state {d_state} "
               f"{x.dtype}: wrapper {ms!r} ms  kernel (device) {dev_ms!r} ms  "
-              f"plain {plain!r} ms  library none (no single PyTorch call "
-              f"computes a selective scan)  bound {bound!r} ms ({bound_by}; "
-              f"exp on the SFUs alone {sfu!r} ms, not counted)")
+              f"queued on the card {queued!r} ms  plain {plain!r} ms  library "
+              f"none (no single PyTorch call computes a selective scan)  bound "
+              f"{bound!r} ms ({bound_by}; exp on the SFUs alone {sfu!r} ms, "
+              f"not counted)")
+        times = {"ms": ms, "kernel_device_ms": dev_ms, "queued_ms": queued,
+                 "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                 "exp_sfu_ms": sfu,
+                 "shape": {"B": b, "T": t_len, "Di": d_inner, "Ds": d_state,
+                           "dtype": str(x.dtype),
+                           "A_D_dtype": "torch.bfloat16"}}
         if label == "prefill":
-            entry = {
-                "name": "mamba_scan", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
-                "replaces": "src/repro/kernels/mamba_scan.py:27",
-                "launches": launches["mamba_scan"], "max_abs_err": err_max,
-                "ms": ms, "kernel_device_ms": dev_ms, "plain_ms": plain,
-                "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-                "exp_sfu_ms": sfu,
-                "shape": {"B": b, "T": t_len, "Di": d_inner, "Ds": d_state,
-                          "dtype": str(x.dtype), "A_D_dtype": "torch.bfloat16"},
-            }
+            entry.update(times, library_ms=None)
+        else:
+            entry["decode"] = times
     return entry
 
 

@@ -322,6 +322,73 @@ def test_rglru_scan_carries_state(card):
     torch.testing.assert_close(s2, h_full, atol=1e-5, rtol=0)
 
 
+def _gate(shape, seed, kind, device, dtype):
+    """a in (0, 1): a sigmoid of N(0, 1), or near 1, or near 0 (where a
+    chunk's product of a underflows to 0 in float32)."""
+    if kind == "sigmoid":
+        return torch.sigmoid(_normal(shape, seed, device, dtype))
+    u = np.random.default_rng(seed).uniform(0.5, 1.0, size=shape)
+    a = 1.0 - 1e-4 * u if kind == "near_one" else 1e-4 * u
+    return torch.from_numpy(a.astype(np.float32)).to(device, getattr(torch, dtype))
+
+
+#: T at and around the chunk lengths the wrapper picks (16 steps and more)
+#: and D off the 128-channel tile, B = 3; a near 1 and near 0, near 1 also
+#: at 33 and 32 chunks, where pass 2 folds pairs past its groups of 8 while
+#: the carry survives
+RGLRU_EDGES = [
+    (1, 1, 130, "sigmoid"), (3, 1, 33, "near_zero"), (1, 15, 256, "sigmoid"),
+    (1, 16, 256, "near_one"), (1, 17, 256, "sigmoid"), (3, 33, 130, "near_zero"),
+    (2, 100, 200, "near_one"), (1, 1025, 256, "sigmoid"),
+    (1, 1025, 256, "near_one"), (3, 3000, 4096, "sigmoid"),
+    (1, 3000, 4096, "near_one"), (1, 2049, 4096, "near_zero"),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,T,D,kind", RGLRU_EDGES)
+def test_rglru_scan_chunk_edges(card, dtype, with_h0, B, T, D, kind):
+    x = _normal((B, T, D), 0, card, dtype)
+    a = _gate((B, T, D), 1, kind, card, dtype)
+    h0 = _normal((B, D), 2, card, "float32") if with_h0 else None
+    y, h_t = rglru_scan(x, a, h0)
+    torch.cuda.synchronize()
+    y_ref, h_ref = rglru_scan_ref(x, a, h0)
+    torch.testing.assert_close(y.float(), y_ref.float(), **KTOL[dtype])
+    torch.testing.assert_close(h_t, h_ref, **KTOL[dtype])
+
+
+def test_rglru_scan_geometry_is_the_sources(card):
+    """The chunking's geometry comes from the C entry: 128 channels a
+    block, 8 steps loaded together, 8 blocks an SM, and the card's SMs."""
+    import importlib
+
+    mod = importlib.import_module("repro_torch.kernels.rglru_scan")
+    index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    assert mod._geometry(index) == (128, 8, 8 * sms)
+    assert mod.chunking(1, 3000, 4096, 128, 8, 8 * 132) == (96, 32)
+
+
+@pytest.mark.parametrize("T", [0, 1, 300])
+def test_rglru_scan_repeats_bits_and_leaves_h0(card, T):
+    """Two calls give the same bits; h0 is read, never written, and h_T is
+    a tensor of its own, also where nothing is scanned."""
+    x = _normal((2, T, 160), 0, card, "bfloat16")
+    a = torch.sigmoid(_normal((2, T, 160), 1, card, "bfloat16"))
+    h0 = _normal((2, 160), 2, card, "float32")
+    keep = h0.clone()
+    y1, h1 = rglru_scan(x, a, h0)
+    y2, h2 = rglru_scan(x, a, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert torch.equal(h0, keep)
+    assert h1.data_ptr() != h0.data_ptr() and h2.data_ptr() != h0.data_ptr()
+    if T == 0:
+        assert torch.equal(h1, h0)
+
+
 def test_attention_and_scan_wrappers_raise(card):
     q = torch.zeros(1, 4, 8, 16, device=card)
     k = torch.zeros(1, 2, 8, 16, device=card)
@@ -464,6 +531,85 @@ def test_mamba_scan_carries_state(card):
     torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, atol=1e-5,
                                rtol=1e-5)
     torch.testing.assert_close(s2, h_full, atol=1e-5, rtol=1e-5)
+
+
+#: T inside, at and around the 64-step time tile and past the 3-stage ring,
+#: d_inner off the 32-channel tile, d_state 1, 5, 16 and 32, B = 3
+MAMBA_EDGES = [
+    (1, 31, 64, 16), (1, 63, 64, 16), (1, 64, 64, 16), (1, 65, 64, 16),
+    (2, 128, 96, 16), (1, 129, 32, 16), (3, 193, 100, 5), (3, 200, 33, 1),
+    (2, 130, 20, 32), (1, 1, 33, 32), (3, 1, 40, 5), (1, 2049, 8192, 16),
+]
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,Di,Ds", MAMBA_EDGES)
+def test_mamba_scan_tiling_edges(card, dtype, param_dtype, B, T, Di, Ds):
+    """A and D in float32 and in bfloat16, read as they are."""
+    x, delta, A, Bc, Cc, D = _mamba_inputs(B, T, Di, Ds, dtype, card,
+                                           param_dtype=param_dtype)
+    h0 = _normal((B, Di, Ds), 6, card, "float32")
+    y, h_t = mamba_scan(x, delta, A, Bc, Cc, D, h0)
+    torch.cuda.synchronize()
+    y_ref, h_ref = mamba_scan_ref(x, delta, A, Bc, Cc, D, h0)
+    torch.testing.assert_close(y.float(), y_ref.float(), **MAMBA_TOL[dtype])
+    torch.testing.assert_close(h_t, h_ref, **MAMBA_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_unaligned_rows(card, dtype):
+    """x and delta at a storage offset of one element and B and C views of a
+    13-wide projection: rows that do not start on 16 bytes take the kernel's
+    plain-load staging, with the same result."""
+    B, T, Di, Ds = 2, 70, 36, 5
+    x, delta, A, _, _, D = _mamba_inputs(B, T, Di, Ds, dtype, card,
+                                         param_dtype="bfloat16")
+    flat = torch.empty(2 * x.numel() + 1, device=card, dtype=x.dtype)
+    xs = flat[1:1 + x.numel()].view(x.shape)
+    ds = flat[1 + x.numel():].view(x.shape)
+    xs.copy_(x)
+    ds.copy_(delta)
+    proj = _normal((B, T, 3 + 2 * Ds), 7, card, dtype)
+    _, Bc, Cc = torch.split(proj, [3, Ds, Ds], dim=-1)
+    assert xs.data_ptr() % 16 and Bc.stride(1) * proj.element_size() % 16
+    y, h_t = mamba_scan(xs, ds, A, Bc, Cc, D)
+    torch.cuda.synchronize()
+    y_ref, h_ref = mamba_scan_ref(x, delta, A, Bc, Cc, D)
+    torch.testing.assert_close(y.float(), y_ref.float(), **MAMBA_TOL[dtype])
+    torch.testing.assert_close(h_t, h_ref, **MAMBA_TOL[dtype])
+
+
+@pytest.mark.parametrize("T", [0, 1, 300])
+def test_mamba_scan_repeats_bits_and_leaves_h0(card, T):
+    """Two calls give the same bits; h0 is read, never written, and h_T is
+    a tensor of its own, also where nothing is scanned."""
+    x, delta, A, Bc, Cc, D = _mamba_inputs(2, T, 96, 16, "bfloat16", card,
+                                           param_dtype="bfloat16")
+    h0 = _normal((2, 96, 16), 6, card, "float32")
+    keep = h0.clone()
+    y1, h1 = mamba_scan(x, delta, A, Bc, Cc, D, h0)
+    y2, h2 = mamba_scan(x, delta, A, Bc, Cc, D, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert torch.equal(h0, keep)
+    assert h1.data_ptr() != h0.data_ptr() and h2.data_ptr() != h0.data_ptr()
+    if T == 0:
+        assert torch.equal(h1, h0)
+
+
+def test_scan_wrappers_raise_off_the_current_device(card, monkeypatch):
+    """mamba_scan and rglru_scan enter no device context: where their
+    tensors lie on another device than the current one, they raise."""
+    x, delta, A, Bc, Cc, D = _mamba_inputs(1, 4, 32, 4, "float32", card)
+    r = torch.ones(1, 4, 32, device=card)
+    other = x.get_device() + 1
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: other)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: other)
+    with pytest.raises(ValueError, match="current device is cuda:"):
+        mamba_scan(x, delta, A, Bc, Cc, D)
+    with pytest.raises(ValueError, match="current device is cuda:"):
+        rglru_scan(r, r * 0.5)
 
 
 def test_mamba_scan_wrapper_raises(card):

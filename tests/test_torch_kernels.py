@@ -4,6 +4,9 @@
 kernels (interpret mode on the CPU) and jnp oracles, and the CPU dispatch
 of the wrappers and the ops layer.  The Hopper kernels themselves are held
 against the plain versions in ``test_torch_cuda.py``."""
+import ctypes
+import re
+
 import numpy as np
 import pytest
 
@@ -28,6 +31,7 @@ from repro_torch.kernels.moe_dispatch import compute_slots, moe_dispatch  # noqa
 from repro_torch.kernels.ref import (attention_ref, mamba_scan_ref,  # noqa: E402
                                      moe_combine_ref, moe_dispatch_ref,
                                      rglru_scan_ref, segment_sum_ref)
+from repro_torch.kernels.rglru_scan import MAX_CHUNKS, chunking  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_sum  # noqa: E402
 
@@ -176,6 +180,148 @@ def test_rglru_plain_version_matches_reference(dtype, B, T, D, chunk, with_h0):
                                    **KTOL[dtype])
         np.testing.assert_allclose(h_t.numpy(), np.asarray(want_h),
                                    **KTOL[dtype])
+
+
+def _rglru_geometry(sms=132):
+    """``chunking``'s (tile, group, blocks) as ``rglru_scan_geometry``
+    gives them, read from the kernels' source, on an H100 SXM's 132 SMs."""
+    src = (_build.CSRC / "rglru_scan.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    return const("kThreads"), const("kUnroll"), const("kMinBlocks") * sms
+
+
+def _rglru_two_pass(x, a, h0):
+    """The CUDA kernels' chunked scan in their order, in float32 torch, at
+    the wrapper's chunks: pass 1 gives every chunk but the last its (A_c,
+    H_c) = (product of a, state from 0); pass 2 folds the pairs of the
+    chunks before its own into h_in from h0 (h = A_j h + H_j, in chunk
+    order), then rescans its chunk from h_in.  Returns (y, h_T, pairs)."""
+    B, T, D = x.shape
+    chunk, k = chunking(B, T, D, *_rglru_geometry())
+    xf, af = x.float(), a.float()
+    inject = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * xf
+    pairs = []
+    for c in range(k - 1):
+        prod, h = torch.ones(B, D), torch.zeros(B, D)
+        for t in range(c * chunk, (c + 1) * chunk):
+            h = af[:, t] * h + inject[:, t]
+            prod = prod * af[:, t]
+        pairs.append((prod, h))
+    y = torch.empty(B, T, D)
+    for c in range(k):
+        h = torch.zeros(B, D) if h0 is None else h0.float().clone()
+        for prod, h_c in pairs[:c]:
+            h = prod * h + h_c
+        for t in range(c * chunk, min((c + 1) * chunk, T)):
+            h = af[:, t] * h + inject[:, t]
+            y[:, t] = h
+    return y.to(x.dtype), h, pairs
+
+
+def _gate(shape, seed, kind):
+    """a in (0, 1): a sigmoid of N(0, 1), or near 1, or near 0 (where a
+    chunk's product of a underflows to 0 in float32)."""
+    u = np.random.default_rng(seed).uniform(0.5, 1.0, size=shape)
+    if kind == "near_one":
+        return (1.0 - 1e-4 * u).astype(np.float32)
+    if kind == "near_zero":
+        return (1e-4 * u).astype(np.float32)
+    return (1.0 / (1.0 + np.exp(-_normal(shape, seed)))).astype(np.float32)
+
+
+#: T around the chunk length the wrapper picks at (2, T, 32), 16 steps up
+#: to T = 1024: one chunk, one and two, four, and 18, where pass 2 of the
+#: last chunk folds 17 pairs, past the kernel's groups of 8
+_RGLRU_T = [1, 15, 16, 17, 3 * 16 + 5, 17 * 16 + 5]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("kind", ["sigmoid", "near_one", "near_zero"])
+@pytest.mark.parametrize("T", _RGLRU_T)
+def test_rglru_two_pass_composition_matches_reference(T, kind, with_h0, dtype):
+    """The kernels' two-pass composition (pass 1's pairs, pass 2's fold and
+    rescan) against the plain version and the reference's interpret-mode
+    Pallas kernel, at T around the chunk length, a near 1 and near 0."""
+    B, D = 2, 32
+    x = _normal((B, T, D), 3)
+    a = _gate((B, T, D), 4, kind)
+    h0 = _normal((B, D), 5) if with_h0 else None
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    tx, ta = torch.from_numpy(x).to(td), torch.from_numpy(a).to(td)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y, h_t, pairs = _rglru_two_pass(tx, ta, th0)
+    chunk, k = chunking(B, T, D, *_rglru_geometry())
+    assert len(pairs) == k - 1 == -(-T // 16) - 1  # 16-step chunks
+    if kind == "near_zero" and k > 1 and chunk >= 12:  # a < 1e-4: 1e-48
+        assert all(bool((prod == 0).all()) for prod, _ in pairs)
+    assert y.dtype == td and h_t.dtype == torch.float32
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    wy, wh = pallas_rglru(jnp.asarray(x, jd), jnp.asarray(a, jd), jh0,
+                          chunk=16, block_d=D)
+    pallas = (torch.from_numpy(np.array(wy.astype(jnp.float32))),
+              torch.from_numpy(np.array(wh)))
+    for want_y, want_h in (rglru_scan_ref(tx, ta, th0), pallas):
+        np.testing.assert_allclose(y.float().numpy(), want_y.float().numpy(),
+                                   **KTOL[dtype])
+        np.testing.assert_allclose(h_t.numpy(), want_h.numpy(), **KTOL[dtype])
+
+
+@pytest.mark.parametrize("b,t,d", [
+    (1, 1, 4096), (4, 1, 4096), (1, 2, 4096), (1, 17, 4096), (1, 2047, 4096),
+    (1, 3000, 4096), (1, 3000, 2560), (3, 100, 33), (1, 100_000, 128),
+    (64, 3000, 4096), (2, 53, 32),
+])
+def test_rglru_chunking(b, t, d):
+    """K ≥ 1 chunks that cover T, every chunk but the last whole and none
+    empty, each a whole number of the kernels' load groups; K = 1 at T = 1
+    (a decode step is one launch); at most MAX_CHUNKS; at the served
+    prefill, blocks enough for 32 warps on each of the 132 SMs."""
+    tile, group, blocks = _rglru_geometry()
+    chunk, k = chunking(b, t, d, tile, group, blocks)
+    assert k >= 1 and chunk >= 1 and (k - 1) * chunk < t <= k * chunk
+    assert k <= MAX_CHUNKS and (k == 1 or chunk % (2 * group) == 0)
+    if t == 1:
+        assert k == 1
+    if (b, t, d) == (1, 3000, 4096):
+        assert b * -(-d // tile) * k * tile >= 132 * 30 * 32
+        assert k >= 30 and chunk >= 16
+
+
+@pytest.mark.parametrize("name,module", [
+    ("mamba_scan", "repro_torch.kernels.mamba_scan"),
+    ("rglru_scan", "repro_torch.kernels.rglru_scan"),
+])
+def test_scan_wrappers_match_their_c_entries(name, module):
+    """Each C entry the scan wrapper names takes the arguments its ctypes
+    signature passes (a pointer where the C side has one, a 64-bit integer
+    elsewhere), and the wrapper makes one ctypes call, enters no
+    ``torch.cuda.device`` context and zero-fills nothing on its launch
+    path."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(module)
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    if name == "rglru_scan":  # the geometry chunking reads, in its order
+        assert re.search(r"out\[0\] = kThreads;\s+out\[1\] = kUnroll;\s+"
+                         r"out\[2\] = kMinBlocks;", src)
+    for entry in mod._ENTRY.values():
+        m = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src)
+        assert m, entry
+        params = [p.strip() for p in m.group(1).split(",")]
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int64
+                 for p in params]
+        assert all("*" in p or p.startswith("int64_t ") for p in params)
+        assert kinds == mod._ARGTYPES
+    wrapper = inspect.getsource(getattr(mod, name))
+    assert wrapper.count("_kernel(") == 1
+    assert "torch.cuda.device(" not in wrapper
+    launch_path = wrapper.split("return y, h_t", 1)[1]  # past the empty path
+    assert "torch.zeros" not in launch_path and ".clone()" not in launch_path
 
 
 def test_lm_kernels_on_cpu_take_the_plain_versions():
@@ -450,7 +596,6 @@ def test_reduce_kernels_enter_c_once_and_zero_fill_there(name, entries,
     context and makes no ``torch.zeros`` of its own."""
     import importlib
     import inspect
-    import re
 
     module = importlib.import_module(
         {"segment_sum": "repro_torch.kernels.segment_reduce",
