@@ -104,6 +104,23 @@ Phases:
     routing choices that differ are counted (at most 1%) and the logits
     are held to the model tolerance where routing agreed in every layer.
 
+11. Training, after Granite's weights are freed: Qwen3-1.7B at full width
+    and depth (28 layers, d_model 2048, vocab 151,936, 1.72 B parameters)
+    through ``repro_torch.launch.train``: 8 AdamW steps of 4 x 2048 tokens
+    from the Zipf(1.3) synthetic stream, bf16 compute over float32 masters,
+    remat, the geo-planned ingest solved on the card (11a).  Every loss and
+    grad norm must be finite, the mean of the last two losses below the
+    first, peak device memory under 80 GB; it prints the step walls,
+    tokens/s, ``train_mfu`` and a profiled warm step, with the float32
+    chunked attention's share timed alone at the step's shapes.  Then a
+    full-width cut to depth 2 in float32, loss and every gradient on the
+    card against the CPU (11b); the reduced config checkpointed every 2
+    steps and resumed with ``--resume auto`` (11c: the restored state
+    equals the saved one bit for bit, the resumed run starts at the batch
+    of step 4); and each kernel wrapper refusing a CUDA input that requires
+    grad (11d).  No kernel runs on the training path: the reference trains
+    on its plain path too.
+
 After the phases, one ``{"kernels": [...]}`` line lists every kernel.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -167,6 +184,14 @@ CARD_BYTES = 80e9
 #: the reference's bar for the Mamba kernel (tests/test_kernels.py:81-87):
 #: atol 5 × the kernel tolerance, rtol 3e-2
 MAMBA_TOL = {"torch.float32": (5 * 2e-5, 3e-2), "torch.bfloat16": (5 * 2e-2, 3e-2)}
+#: training (phase 11): Qwen3-1.7B at full width and depth, 8 AdamW steps
+#: of 4 x 2048 tokens; the float32 cut's bars, card against CPU: the loss
+#: to rtol 1e-5 and each gradient leaf to 1e-4 of its largest entry (the
+#: embedding's backward adds rows with atomics on the card, in an order of
+#: its own: float32 sums of a few hundred terms, ~1e-6 of the leaf)
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 #: exponentials per second on the special function units: 16 a clock per
 #: SM at compute capability 9.0 (CUDA C++ programming guide, arithmetic
 #: instruction throughput), 132 SMs at the H100 SXM's 1.98 GHz boost clock
@@ -1914,6 +1939,359 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
     del params
 
 
+# ---------------------------------------------------------------------------
+# the LM training path
+# ---------------------------------------------------------------------------
+
+class _Tee:
+    """Standard output that is also kept, line by line."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._part = out, [], ""
+
+    def write(self, s):
+        self.out.write(s)
+        self._part += s
+        *done, self._part = self._part.split("\n")
+        self.lines += done
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _train_argv(arch, reduced, steps, batch, seq, *extra):
+    return ["--arch", arch, *(["--reduced"] if reduced else []),
+            "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
+            "--log-every", "1", "--seed", "0", *extra]
+
+
+def _recording_step(records, device, profile_step=None):
+    """A ``wrap_step`` for ``launch.train.main``: each step's wall
+    (synchronized before and after), batch and metrics are recorded, and
+    step ``profile_step`` runs under ``torch.profiler``."""
+
+    def wrap(step_fn):
+        def run(state, batch):
+            index = len(records) + 1
+            prof = None
+            _sync(device)
+            t0 = time.perf_counter()
+            if index == profile_step:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    state, metrics = step_fn(state, batch)
+                    _sync(device)
+            else:
+                state, metrics = step_fn(state, batch)
+                _sync(device)
+            records.append({"s": time.perf_counter() - t0, "profile": prof,
+                            "batch": {k: v.cpu().numpy() for k, v in batch.items()},
+                            "loss": float(metrics["loss"]),
+                            "grad_norm": float(metrics["grad_norm"])})
+            return state, metrics
+        return run
+    return wrap
+
+
+def _run_launcher(argv, records, device, profile_step=None):
+    """``repro_torch.launch.train.main(argv)`` in this process: (its final
+    state, the lines it printed)."""
+    import contextlib
+
+    from repro_torch.launch import train as launch_train
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        state = launch_train.main(
+            argv, wrap_step=_recording_step(records, device, profile_step))
+    return state, tee.lines
+
+
+def train_flops(cfg, batch, seq):
+    """Model FLOPs of one training step: 6 · parameters · tokens, plus the
+    causal attention's 6 · layers · B · T² · heads · head dim."""
+    n_attn = sum(b.mixer == "attn" for b in list(cfg.pattern) * cfg.n_groups
+                 + list(cfg.tail))
+    return (6 * cfg.n_params() * batch * seq
+            + 6 * n_attn * batch * seq ** 2 * cfg.n_heads * cfg.head_dim_)
+
+
+def chunked_attention_step_ms(device, cfg, batch, seq):
+    """The float32 chunked attention's device time in one training step,
+    measured alone at the step's shapes: (forward ms, forward and backward
+    ms, a step's ms: each attention layer's forward and backward plus the
+    forward that remat runs again)."""
+    import torch
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q, k, v = (torch.randn((batch, h, seq, Dh), generator=gen, device=device,
+                           dtype=torch.bfloat16).requires_grad_()
+               for h in (H, Hkv, Hkv))
+    grad = torch.randn((batch, H, seq, Dh), generator=gen, device=device,
+                       dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            L.chunked_attention(q, k, v, True, None, 0)
+
+    def fwd_bwd():
+        L.chunked_attention(q, k, v, True, None, 0).backward(grad)
+
+    f = time_ms(fwd, runs=5, per_run=1, warmup=1)
+    fb = time_ms(fwd_bwd, runs=5, per_run=1, warmup=1)
+    layers = sum(b.mixer == "attn" for b in list(cfg.pattern) * cfg.n_groups
+                 + list(cfg.tail))
+    return f, fb, layers * (fb + f)
+
+
+def phase_training(device, arch=TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """Phase 11a: ``arch`` trained through ``repro_torch.launch.train`` at
+    full width and depth, bf16 compute over float32 masters, remat on, the
+    geo-planned ingest on; checks finite, falling losses and peak memory,
+    prints step walls, tokens/s, ``train_mfu`` and a profiled warm step."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    print(f"== phase 11a: training {cfg.name} through repro_torch.launch.train "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{cfg.n_params() / 1e9:.3f} B parameters; batch {batch} x {seq}, "
+          f"{steps} AdamW steps, bf16 compute, float32 masters, remat)",
+          flush=True)
+    if device.type == "cuda":
+        _sync(device)  # a CUDA context first, where this phase runs alone
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    from repro_torch.kernels.segment_reduce import segment_sum
+
+    kernels = dict(_lm_kernels(), segment_sum=segment_sum)
+    records = []
+    argv = _train_argv(arch, reduced, steps, batch, seq, "--dtype", "bfloat16",
+                       "--remat", "--warmup", "2", "--lr", "3e-4",
+                       "--geo-ingest", "--device", str(device))
+    for w in kernels.values():
+        w.launches = 0
+    t = time.perf_counter()
+    state, lines = _run_launcher(argv, records, device,
+                                 profile_step=steps if device.type == "cuda" else None)
+    wall = time.perf_counter() - t
+    launches = {k: w.launches for k, w in kernels.items()}
+    check(not any(launches.values()),
+          f"the training path launched a kernel: {launches}")
+    print(f"kernel launches while training: {launches}")
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    logged = [dict(f.split("=") for f in line.split()[2:])
+              for line in lines if line.startswith("step ")]
+    check(len(logged) == steps == len(records),
+          f"{len(logged)} step lines and {len(records)} steps, wanted {steps}")
+    check(any(line.startswith("[ingest] planned=") for line in lines),
+          "no [ingest] line: the geo-planned ingest did not run")
+    check(lines[-1] == "[train] done", f"last line {lines[-1]!r}")
+    losses = [float(x["loss"]) for x in logged]
+    gnorms = [float(x["gnorm"]) for x in logged]
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"a loss or grad norm is not finite: {losses} {gnorms}")
+    first, last_two = records[0]["loss"], statistics.mean(
+        r["loss"] for r in records[-2:])
+    check(last_two < first, f"loss did not fall: first {first}, mean of the "
+          f"last two {last_two}")
+    check(peak < CARD_BYTES, f"peak device memory {peak / 1e9} GB over "
+          f"{CARD_BYTES / 1e9} GB")
+    n_state = sum(a.numel() * a.element_size()
+                  for a in _leaves({"p": state.params, "m": state.opt.m,
+                                    "v": state.opt.v}))
+    warm = [r["s"] for r in records[1:] if r["profile"] is None]
+    median = statistics.median(warm) if warm else records[0]["s"]
+    flops = train_flops(cfg, batch, seq)
+    print(f"losses {[r['loss'] for r in records]!r}")
+    print(f"grad norms {[r['grad_norm'] for r in records]!r}")
+    print(f"first step {records[0]['s']!r} s; warm steps {warm!r} s, median "
+          f"{median!r} s; {batch * seq / median!r} tokens/s; launcher wall "
+          f"{wall!r} s")
+    print(f"train_mfu {flops / median / BF16_OPS_PER_S!r} ({flops / 1e12!r} "
+          f"TFLOP a step over {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16); peak "
+          f"device memory {peak / 1e9!r} GB; params + moments {n_state / 1e9!r} GB")
+    prof = records[-1]["profile"]
+    if prof is not None:
+        busy_us, n, by_name = device_activity(prof)
+        total = sum(by_name.values())
+        print(f"profile of warm step {steps}: wall {records[-1]['s']!r} s "
+              f"(profiled), device busy {busy_us / 1e6!r} s, busy share "
+              f"{busy_us / 1e6 / records[-1]['s']!r} of the profiled wall and "
+              f"{busy_us / 1e6 / median!r} of the warm median step, device "
+              f"events {n}")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  {us / 1e3:10.3f} ms  {us / total:6.1%}  {name[:110]}")
+        f, fb, per_step = chunked_attention_step_ms(device, cfg, batch, seq)
+        print(f"chunked_attention (float32) at ({batch}, {cfg.n_heads}, {seq}, "
+              f"{cfg.head_dim_}) alone: forward {f!r} ms, forward+backward "
+              f"{fb!r} ms; a step's share (layers x (forward+backward + the "
+              f"remat forward)) {per_step!r} ms, {per_step / 1e3 / median!r} "
+              "of the warm median step")
+
+
+def _grads(cfg, params, batch):
+    """(float32 loss, {path: grad}) of ``loss_fn`` in float32."""
+    import torch
+    from repro_torch.models import model as M
+
+    leaves = M._tree_map(lambda _, a: a.detach().requires_grad_(), params)
+    loss, _ = M.loss_fn(cfg, leaves, batch)
+    paths, flat = [], []
+    M._tree_map(lambda p, a: (paths.append(p), flat.append(a)), leaves)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.detach(), dict(zip(paths, grads))
+
+
+def phase_training_float32_cut(device, arch=TRAIN_ARCH, depth=2, seq=256,
+                               reduced=False):
+    """Phase 11b: a full-width cut of ``arch`` to ``depth`` layers, float32
+    (no TF32): ``loss_fn`` and every gradient on the card against the same
+    on the CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    torch.set_float32_matmul_precision("highest")
+    base = get_config(arch).reduced() if reduced else get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=depth)
+    print(f"== phase 11b: {cfg.name} at full width and depth {depth}, loss and "
+          f"gradients on the card against the CPU (float32, B=1, T={seq})",
+          flush=True)
+    params = M.init(cfg, torch.Generator(device=device).manual_seed(3),
+                    device=device)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, size=(1, seq + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]),
+             "labels": torch.as_tensor(toks[:, 1:])}
+    on_card = {k: v.to(device) for k, v in batch.items()}
+    loss, grads = _grads(cfg, params, on_card)
+    cpu = torch.device("cpu")
+    want_loss, want = _grads(cfg, M.cast_params(params, torch.float32, cpu),
+                             batch)
+    check(bool(torch.isfinite(loss)) and abs(float(loss) - float(want_loss))
+          <= TRAIN_LOSS_RTOL * abs(float(want_loss)),
+          f"loss {float(loss)} on the card, {float(want_loss)} on the CPU")
+    worst = 0.0
+    for path, g in grads.items():
+        w = want[path]
+        if w is None or g is None:
+            check(w is None and g is None, f"{path}: reached on one side only")
+            continue
+        scale = float(w.abs().max())
+        err = float((g.cpu() - w).abs().max())
+        check(err <= TRAIN_GRAD_TOL * scale,
+              f"{'/'.join(path)}: gradient max |err| {err} over "
+              f"{TRAIN_GRAD_TOL} x {scale}")
+        worst = max(worst, err / scale)
+    print(f"loss card {float(loss)!r} cpu {float(want_loss)!r} (rtol "
+          f"{TRAIN_LOSS_RTOL}); {len(grads)} gradient leaves, worst max |err| "
+          f"{worst!r} of the leaf's largest entry (bar {TRAIN_GRAD_TOL})")
+    del params, grads
+
+
+def phase_checkpoint_resume(device, arch=TRAIN_ARCH):
+    """Phase 11c: the reduced config on the card, 4 steps with checkpoints
+    every 2, then on to 6 with ``--resume auto``: the restored state equals
+    the first run's last one bit for bit, and the resumed run starts at the
+    batch of step 4."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.train.checkpoint import CheckpointManager, _leaf_paths
+
+    cfg = get_config(arch).reduced()
+    print(f"== phase 11c: checkpoint and resume through the launcher "
+          f"({cfg.name} reduced, on {device})", flush=True)
+    batch, seq = 4, 64
+    with tempfile.TemporaryDirectory() as d:
+        common = ["--ckpt-dir", d, "--ckpt-every", "2", "--device", str(device)]
+        first, _ = _run_launcher(_train_argv(arch, True, 4, batch, seq, *common),
+                                 [], device)
+        mgr = CheckpointManager(d)
+        check(mgr.steps() == [2, 4], f"committed steps {mgr.steps()}")
+        restored, _, step = mgr.restore(None, first)
+        check(step == 4, f"restored step {step}")
+        want = _leaf_paths(first)
+        for path, a in _leaf_paths(restored).items():
+            check(a.device == want[path].device and a.dtype == want[path].dtype
+                  and torch.equal(a, want[path]),
+                  f"{path}: restored differs from the saved state")
+        records = []
+        _, lines = _run_launcher(_train_argv(arch, True, 6, batch, seq,
+                                             "--resume", "auto", *common),
+                                 records, device)
+        check("[resume] restored committed step 4" in lines,
+              f"no resume line in {lines[:3]}")
+        next_batch = synthetic_lm_batch(cfg.vocab, batch, seq, 4, seed=0)
+        check(len(records) == 2 and all(
+            np.array_equal(records[0]["batch"][k], v)
+            for k, v in next_batch.items()),
+            "the resumed run's first batch is not the batch of step 4")
+        check(mgr.steps() == [2, 4, 6], f"committed steps {mgr.steps()}")
+    print(f"{len(want)} leaves restored bit for bit at step 4; resumed at the "
+          "batch of step 4; committed steps [2, 4, 6]")
+
+
+def _grad_guard_calls(device):
+    """Each kernel's wrapper on small CUDA inputs that require grad."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=device).requires_grad_()
+
+    ids = torch.tensor([0, 2, 2, 1], dtype=torch.int32, device=device)
+    from repro_torch.kernels.segment_reduce import segment_sum
+
+    kernels = dict(_lm_kernels(), segment_sum=segment_sum)
+    return {
+        "segment_sum": lambda: kernels["segment_sum"](r(4, 3), ids, 4),
+        "flash_attention": lambda: kernels["flash_attention"](
+            r(1, 4, 64, 64), r(1, 2, 64, 64), r(1, 2, 64, 64)),
+        "mamba_scan": lambda: kernels["mamba_scan"](
+            r(1, 8, 32), r(1, 8, 32).detach().abs().requires_grad_(),
+            -r(32, 4).detach().abs().requires_grad_(), r(1, 8, 4), r(1, 8, 4),
+            r(32)),
+        "rglru_scan": lambda: kernels["rglru_scan"](
+            r(1, 8, 128), r(1, 8, 128).detach().sigmoid().requires_grad_()),
+        "moe_dispatch": lambda: kernels["moe_dispatch"](r(4, 64), ids, ids, 4, 4),
+    }
+
+
+def phase_grad_guard(device):
+    """Phase 11d: every kernel wrapper refuses a CUDA input that requires
+    grad under autograd (its output would carry no ``grad_fn``)."""
+    import torch
+
+    print("== phase 11d: the kernel wrappers refuse inputs that require grad",
+          flush=True)
+    for name, call in _grad_guard_calls(device).items():
+        with torch.enable_grad():
+            try:
+                call()
+            except RuntimeError as exc:
+                check("no backward" in str(exc), f"{name}: raised {exc}")
+                print(f"{name}: raises ({exc})")
+                continue
+        fail(f"{name} launched on an input that requires grad")
+
+
 def free_device_memory(device) -> None:
     """Return what the finished phases held to the card."""
     import gc
@@ -1958,6 +2336,12 @@ def main() -> None:
     moe_entry, flash_granite = phase_moe_kernel(device, granite)
     entries.append(moe_entry)
     phase_moe_model(device)
+    free_device_memory(device)
+    phase_training(device)
+    free_device_memory(device)
+    phase_training_float32_cut(device)
+    phase_checkpoint_resume(device)
+    phase_grad_guard(device)
     flash = next(e for e in entries if e["name"] == "flash_attention")
     flash["launches_by_path"] = {SERVE_ARCH: flash["launches"],
                                  GRANITE_ARCH: granite["flash_attention"]}

@@ -4,9 +4,10 @@ The reference's platforms and plans arrive as plain dicts of numpy arrays
 and scalars — the form :func:`dataclasses.asdict` gives of a
 ``repro.core.platform.Platform`` or ``repro.core.plan.ExecutionPlan``,
 nested ``Substrate``, ``CapacityTrace`` and ``FailureTrace`` fields
-included — and an LM's parameters as a nested dict of numpy arrays (what
-``jax.tree.map(np.asarray, params)`` gives), so that this module needs
-nothing of the reference package.
+included — an LM's parameters as a nested dict of numpy arrays (what
+``jax.tree.map(np.asarray, params)`` gives), and a train state as the
+reference's ``TrainState`` of numpy arrays, read by its field names, so
+that this module needs nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -25,9 +26,11 @@ from .core.platform import (
     Substrate,
 )
 from .models.config import ArchConfig
+from .train.optim import AdamWState
+from .train.train_step import TrainState
 
 __all__ = ["lm_params_from_numpy", "plan_from_fields", "platform_from_fields",
-           "substrate_from_fields"]
+           "substrate_from_fields", "train_state_from_numpy"]
 
 _CAPACITIES = ("B_sm", "B_mr", "C_m", "C_r")
 _CLUSTERS = ("cluster_s", "cluster_m", "cluster_r")
@@ -105,3 +108,28 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
         return t.to(dev)
 
     return {k: convert(v, k) for k, v in tree.items()}
+
+
+def train_state_from_numpy(cfg: ArchConfig, state_tree: Any,
+                           device=None) -> TrainState:
+    """The port's :class:`~repro_torch.train.train_step.TrainState` from
+    the reference's, as numpy arrays (``jax.tree.map(np.asarray, state)``):
+    params, ``opt.step``/``m``/``v`` and the residual on ``device``
+    (default: the process default), in their stored dtypes; ``rng``'s two
+    uint32 words on the CPU, where the port keeps them."""
+    dev = resolve_device(device)
+
+    def tree(t):
+        return lm_params_from_numpy(cfg, t, device=dev)
+
+    def scalar(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32, device=dev)
+
+    opt = state_tree.opt
+    return TrainState(
+        params=tree(state_tree.params),
+        opt=AdamWState(step=scalar(opt.step), m=tree(opt.m), v=tree(opt.v)),
+        residual=tree(state_tree.residual),
+        rng=torch.from_numpy(np.array(state_tree.rng, dtype=np.uint32)),
+        step=scalar(state_tree.step),
+    )

@@ -18,7 +18,10 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["BUILD_DIR", "CSRC", "build", "build_log", "find_nvcc", "load"]
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "build", "build_log", "find_nvcc", "load",
+           "refuse_grad"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -29,6 +32,18 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need the kernel's backward: the kernels
+    are called through ctypes, and their outputs carry no ``grad_fn``, so a
+    graph through one would be cut without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires "
+            "grad: call it under torch.no_grad(), or train on the plain "
+            "versions (use_kernels=False)")
 
 
 def find_nvcc() -> str:

@@ -72,6 +72,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Raise on what the kernels do not take; else the entry point."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: q on {q.device}, need cuda")
+    _build.refuse_grad("flash_attention", q, k, v)
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "

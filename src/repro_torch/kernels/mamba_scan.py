@@ -52,6 +52,7 @@ def _kernel(dtype: torch.dtype):
 def _check(x, delta, A, Bc, Cc, D, h0) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan: x on {x.device}, need cuda")
+    _build.refuse_grad("mamba_scan", x, delta, A, Bc, Cc, D, h0)
     named = {"delta": delta, "A": A, "Bc": Bc, "Cc": Cc, "D": D, "h0": h0}
     for name, t in named.items():
         if t is not None and t.device != x.device:
@@ -154,7 +155,12 @@ def mamba_scan(
                                 and h0.size(0) == x.size(0)
                                 and h0.size(1) == x.size(2)
                                 and h0.size(2) == A.size(1)
-                                and h0.is_contiguous()))):
+                                and h0.is_contiguous()))
+            and not ((x.requires_grad or delta.requires_grad
+                      or A.requires_grad or Bc.requires_grad
+                      or Cc.requires_grad or D.requires_grad
+                      or h0 is not None and h0.requires_grad)
+                     and torch.is_grad_enabled())):
         _check(x, delta, A, Bc, Cc, D, h0)
     B, T, Di = x.shape
     Ds = A.size(1)

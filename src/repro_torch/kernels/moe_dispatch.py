@@ -72,6 +72,7 @@ def _kernel(dtype: torch.dtype):
 def _check(tokens, expert_ids, slot_ids, num_experts, capacity) -> None:
     if tokens.device.type != "cuda":
         raise ValueError(f"moe_dispatch: tokens on {tokens.device}, need cuda")
+    _build.refuse_grad("moe_dispatch", tokens)
     if tokens.dim() != 2:
         raise ValueError(f"moe_dispatch: tokens must be (T, D), got "
                          f"{tuple(tokens.shape)}")
@@ -137,7 +138,8 @@ def moe_dispatch(
             and tokens.is_contiguous() and expert_ids.is_contiguous()
             and slot_ids.is_contiguous()
             and expert_ids.size(0) == tokens.size(0) == slot_ids.size(0)
-            and tokens.size(0) < _MAX_ROWS):
+            and tokens.size(0) < _MAX_ROWS
+            and not (tokens.requires_grad and torch.is_grad_enabled())):
         _check(tokens, expert_ids, slot_ids, num_experts, capacity)
     t, d = tokens.shape
     # empty_strided: no memory-format argument for the host to resolve

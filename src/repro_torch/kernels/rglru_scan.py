@@ -86,6 +86,7 @@ def _check(x: torch.Tensor, a: torch.Tensor,
            h0: Optional[torch.Tensor]) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan: x on {x.device}, need cuda")
+    _build.refuse_grad("rglru_scan", x, a, h0)
     if a.device != x.device:
         raise ValueError(f"rglru_scan: a on {a.device}, x on {x.device}")
     if x.dtype not in _ENTRY:
@@ -139,7 +140,10 @@ def rglru_scan(
                                 and h0.get_device() == index
                                 and h0.dim() == 2 and h0.size(0) == x.size(0)
                                 and h0.size(1) == x.size(2)
-                                and h0.is_contiguous()))):
+                                and h0.is_contiguous()))
+            and not ((x.requires_grad or a.requires_grad
+                      or h0 is not None and h0.requires_grad)
+                     and torch.is_grad_enabled())):
         _check(x, a, h0)
     B, T, D = x.shape
     y = torch.empty_strided((B, T, D), (T * D, D, 1), dtype=x.dtype,

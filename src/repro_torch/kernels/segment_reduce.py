@@ -44,6 +44,7 @@ def _check(values: torch.Tensor, segment_ids: torch.Tensor,
            num_segments: int) -> None:
     if values.device.type != "cuda":
         raise ValueError(f"segment_sum: values on {values.device}, need cuda")
+    _build.refuse_grad("segment_sum", values)
     if segment_ids.device != values.device:
         raise ValueError(
             f"segment_sum: segment_ids on {segment_ids.device}, values on "
@@ -99,7 +100,8 @@ def segment_sum(
             and segment_ids.get_device() == index
             and index == torch._C._cuda_getDevice() and s >= 0
             and values.is_contiguous() and segment_ids.is_contiguous()
-            and segment_ids.size(0) == values.size(0)):
+            and segment_ids.size(0) == values.size(0)
+            and not (values.requires_grad and torch.is_grad_enabled())):
         _check(values, segment_ids, num_segments)
     n, d = values.shape
     # empty_strided: no memory-format argument for the host to resolve

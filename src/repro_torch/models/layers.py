@@ -319,8 +319,9 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     # logistic into 1 / (1 + exp(-x)) rounded to bfloat16 after every step;
     # the same steps give the reference's bits (F.silu rounds once, and a
     # third of bfloat16 silu(g) * u products then differ by an ulp, enough
-    # to flip Granite-MoE's routing downstream)
-    return x * torch.exp(-x).add_(1).reciprocal_()
+    # to flip Granite-MoE's routing downstream).  Out of place: autograd
+    # keeps exp's output for its backward
+    return x * (torch.exp(-x) + 1).reciprocal()
 
 
 def _act(cfg: ArchConfig, x):

@@ -13,22 +13,27 @@ Public entry points:
 * ``cast_params(params, dtype, device)``           → params in the compute dtype
 * ``forward(cfg, params, batch, ...)``             → logits, cache, aux
   (aux: the MoE blocks' load-balance losses summed, 0 without MoE)
+* ``loss_fn(cfg, params, batch, ...)``             → scalar, metrics
 * ``init_cache(cfg, B, max_len, dtype, ...)``      → cache
 * ``prefill(cfg, params, batch, max_cache_len, ...)`` → logits, cache, aux
 * ``decode_step(cfg, params, batch, cache, ...)``  → logits, cache, aux
 
-The compute dtype is the parameters' own: the reference casts every
+Serving computes in the parameters' own dtype: the reference casts every
 float32 group parameter and the embedding to ``compute_dtype`` on every
-call, the port casts once (:func:`init` with ``dtype=``, or
-:func:`cast_params`), which gives the same numbers.  ``final_norm`` stays
-float32, as the reference leaves it.  Decode updates the cache in place.
-MoE FFNs run on one device (no expert parallelism over a mesh).
+call, the server casts once (:func:`init` with ``dtype=``, or
+:func:`cast_params`), which gives the same numbers.  Training keeps
+float32 masters and passes ``compute_dtype=`` to :func:`forward`, which
+casts as the reference does, inside the autograd graph, so gradients land
+on the masters.  ``final_norm`` stays float32, as the reference leaves
+it.  Decode updates the cache in place.  MoE FFNs run on one device (no
+expert parallelism over a mesh).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from . import layers as L
@@ -93,6 +98,12 @@ def _tree_map(fn, tree, path=()):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v, path + (k,)) for k, v in tree.items()}
     return fn(path, tree)
+
+
+def _cast_f32(tree, dtype: torch.dtype):
+    """The reference's per-call cast: float32 leaves to ``dtype``."""
+    return _tree_map(lambda _, a: a.to(dtype) if a.dtype == torch.float32
+                     else a, tree)
 
 
 def cast_params(params: Params, dtype: torch.dtype, device=None) -> Params:
@@ -238,6 +249,8 @@ def forward(
     mode: str = "train",
     cache=None,
     use_kernels: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
     max_cache_len: Optional[int] = None,
     last_only: bool = False,
 ):
@@ -245,12 +258,22 @@ def forward(
     stub-frontend archs — ``embeds`` (B, T, d), and optionally
     ``positions``.  Returns (float32 logits, cache, aux_loss): the new
     cache in ``prefill`` mode, ``cache`` itself updated in place in
-    ``decode`` mode, ``None`` in ``train`` mode."""
+    ``decode`` mode, ``None`` in ``train`` mode.
+
+    ``compute_dtype`` (default: the parameters' own) casts the embedding,
+    the unembedding and every float32 group and tail parameter to it, as
+    the reference does on every call (``final_norm`` stays float32).
+    ``remat`` (train mode) runs each group under
+    ``torch.utils.checkpoint``: the reference's
+    ``jax.checkpoint(nothing_saveable)`` per group, which keeps only the
+    residual stream between groups and recomputes each group's insides,
+    the attention blocks included, in the backward pass."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a cache")
-    w_embed = params["embed"]
+    cd = compute_dtype
+    w_embed = params["embed"] if cd is None else params["embed"].to(cd)
     if cfg.frontend == "embed" and "embeds" in batch:
         x = batch["embeds"].to(w_embed.dtype)
     else:
@@ -262,23 +285,41 @@ def forward(
         positions = torch.arange(T, device=x.device)[None, :]
     positions = positions.to(x.device).expand(B, T)
 
-    stacked: Dict[str, list] = {f"blk{i}": [] for i in range(len(cfg.pattern))}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.n_groups):
+    # each stacked leaf split once into its groups' views (unbind's backward
+    # stacks the groups' gradients in one buffer)
+    groups = _tree_map(lambda _, a: a.unbind(0), params["groups"])
+
+    def group_fwd(x, g):
+        gp = _tree_map(lambda _, a: a[g], groups)
+        if cd is not None:
+            gp = _cast_f32(gp, cd)
+        aux_g, new = None, {}
         for i, blk in enumerate(cfg.pattern):
             name = f"blk{i}"
-            gp = _tree_map(lambda _, a: a[g], params["groups"][name])
             c = None
             if mode == "decode":
                 c = {k: v[g] for k, v in cache[name].items()}
-            x, nc, aux_b = _block_fwd(cfg, blk, gp, x, positions, c, mode,
-                                      use_kernels, max_cache_len)
+            x, nc, aux_b = _block_fwd(cfg, blk, gp[name], x, positions, c,
+                                      mode, use_kernels, max_cache_len)
             if aux_b is not None:
-                aux = aux + aux_b
+                aux_g = aux_b if aux_g is None else aux_g + aux_b
             if mode == "decode":
                 _write_back(c, nc)
             elif nc is not None:
+                new[name] = nc
+        return x, aux_g, new
+
+    stacked: Dict[str, list] = {f"blk{i}": [] for i in range(len(cfg.pattern))}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.n_groups):
+        if remat and mode == "train":
+            x, aux_g, _ = checkpoint(group_fwd, x, g, use_reentrant=False)
+        else:
+            x, aux_g, new = group_fwd(x, g)
+            for name, nc in new.items():
                 stacked[name].append(nc)
+        if aux_g is not None:
+            aux = aux + aux_g
 
     new_cache = None
     if mode == "prefill":
@@ -289,13 +330,13 @@ def forward(
         new_cache = cache
 
     if cfg.tail:
+        tail = params["tail"] if cd is None else _cast_f32(params["tail"], cd)
         tail_new = {}
         for i, blk in enumerate(cfg.tail):
             name = f"blk{i}"
             c = cache["tail"][name] if mode == "decode" else None
-            x, nc, aux_b = _block_fwd(cfg, blk, params["tail"][name], x,
-                                      positions, c, mode, use_kernels,
-                                      max_cache_len)
+            x, nc, aux_b = _block_fwd(cfg, blk, tail[name], x, positions, c,
+                                      mode, use_kernels, max_cache_len)
             if aux_b is not None:
                 aux = aux + aux_b
             if mode == "decode":
@@ -309,12 +350,47 @@ def forward(
         # serving prefill: only the last position's logits are consumed
         x = x[:, -1:]
     x = L.apply_norm(cfg, params["final_norm"], x)
-    w_out = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    if cfg.tie_embeddings:
+        w_out = w_embed
+    else:
+        w_out = params["unembed"] if cd is None else params["unembed"].to(cd)
     logits = torch.matmul(x.to(w_out.dtype), w_out.t()).float()
     if cfg.vocab_real is not None and cfg.vocab_real < cfg.vocab:
         # TP-padded vocab rows must never win a softmax (exact semantics)
         logits[..., cfg.vocab_real:] = -1e9
     return logits, new_cache, aux
+
+
+def loss_fn(
+    cfg: ArchConfig,
+    params: Params,
+    batch: Dict[str, torch.Tensor],
+    use_kernels: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
+    z_loss: float = 1e-4,
+):
+    """Next-token cross entropy (+ router aux loss + z-loss).  Labels come
+    from ``batch['labels']``; positions where ``labels < 0`` are masked.
+    Returns ``(total, {"ce", "z_loss", "aux", "tokens"})``.
+
+    The label's logit is taken with ``gather``; the reference's masked sum
+    over the vocabulary (``where(iota == label)``, there so that the
+    vocab-sharded logits reduce locally) gives the same value, and would
+    cost a (B, T, V) float32 temporary on one card."""
+    logits, _, aux = forward(cfg, params, batch, mode="train",
+                             use_kernels=use_kernels,
+                             compute_dtype=compute_dtype, remat=remat)
+    labels = batch["labels"].long()
+    valid = (labels >= 0).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (logz - ll) * valid
+    denom = valid.sum().clamp(min=1.0)
+    ce = nll.sum() / denom
+    zl = z_loss * ((logz * valid) ** 2).sum() / denom
+    total = ce + zl + cfg.router_aux_weight * aux
+    return total, {"ce": ce, "z_loss": zl, "aux": aux, "tokens": denom}
 
 
 def prefill(cfg: ArchConfig, params: Params, batch, max_cache_len: int,

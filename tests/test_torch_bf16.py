@@ -292,3 +292,32 @@ def test_silu_rounds_as_the_reference(jit):
     once = F.silu(gt * 2) * ut
     np.testing.assert_array_equal(_bits(got), _bits(want))
     assert (_bits(once) != _bits(want)).mean() > 0.01
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_silu_backpropagates(dtype):
+    """Training reaches ``_silu`` under autograd: its gradient is the
+    analytic ``σ(x)(1 + x(1 − σ(x)))``, and its forward keeps the
+    reference's values (the bits in bfloat16, where the witness above pins
+    the rounding; float32 within 2^-21, an ulp or two of XLA's logistic).
+    Gradient bars: float32 rtol 1e-6; bfloat16, whose backward rounds after
+    each of about four steps, rtol 2^-6 (four roundings of 2^-8) and atol
+    2^-9."""
+    tdtype = getattr(torch, dtype)
+    x = np.random.default_rng(7).standard_normal(4096).astype(np.float32) * 4
+    xt = torch.from_numpy(x).to(tdtype).requires_grad_()
+    y = L._silu(xt)
+    (g,) = torch.autograd.grad(y.sum(), xt)
+    x64 = xt.detach().double()
+    sig = torch.sigmoid(x64)
+    want = (sig * (1 + x64 * (1 - sig))).numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(g.double().numpy(), want, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(
+            y.detach().numpy(), np.asarray(jax.nn.silu(jnp.asarray(x))),
+            rtol=2.0 ** -21, atol=0)
+    else:
+        np.testing.assert_allclose(g.double().numpy(), want, rtol=2.0 ** -6,
+                                   atol=2.0 ** -9)
+        xj = jnp.asarray(xt.detach().float().numpy(), jnp.bfloat16)
+        np.testing.assert_array_equal(_bits(y.detach()), _bits(jax.nn.silu(xj)))

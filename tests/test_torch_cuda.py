@@ -939,3 +939,62 @@ def test_granite_engine_on_the_card_matches_the_plain_versions(card):
         eng.run()
         outputs[use_kernels] = [r.output for r in reqs]
     assert outputs[True] == outputs[False]
+
+
+def _kernel_calls(device, seed=0):
+    """Each LM and reduce kernel's wrapper on small CUDA inputs whose float
+    tensors require grad: name → (wrapper, a call)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=device).requires_grad_()
+
+    def u(*shape):
+        return torch.rand(shape, generator=g, device=device).requires_grad_()
+
+    ids = torch.tensor([0, 2, 2, 1, 5], dtype=torch.int32, device=device)
+    slots = torch.tensor([0, 0, 1, 3, 1], dtype=torch.int32, device=device)
+    return {
+        "segment_sum": (segment_sum, lambda: segment_sum(r(5, 3), ids, 4)),
+        "flash_attention": (flash_attention, lambda: flash_attention(
+            r(1, 4, 64, 64), r(1, 2, 64, 64), r(1, 2, 64, 64))),
+        "mamba_scan": (mamba_scan, lambda: mamba_scan(
+            r(2, 5, 32), u(2, 5, 32), -u(32, 4).detach().requires_grad_(),
+            r(2, 5, 4), r(2, 5, 4), r(32), r(2, 32, 4))),
+        "rglru_scan": (rglru_scan, lambda: rglru_scan(r(2, 5, 128),
+                                                      u(2, 5, 128), r(2, 128))),
+        "moe_dispatch": (moe_dispatch,
+                         lambda: moe_dispatch(r(5, 64), ids, slots, 4, 2)),
+    }
+
+
+@pytest.mark.parametrize("name", ["segment_sum", "flash_attention",
+                                  "mamba_scan", "rglru_scan", "moe_dispatch"])
+def test_wrappers_refuse_inputs_that_require_grad(card, name):
+    """A kernel's output carries no ``grad_fn``: under autograd, an input
+    that requires grad raises instead of cutting the graph; under
+    ``no_grad`` the kernel launches."""
+    wrapper, call = _kernel_calls(card)[name]
+    before = wrapper.launches
+    with torch.enable_grad(), pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert wrapper.launches == before
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+
+
+def test_loss_with_kernels_fails_loudly_on_the_card(card):
+    cfg = ARCHS["qwen3-1.7b"].reduced()
+    params = M.init(cfg, torch.Generator(device=card).manual_seed(0),
+                    device=card)
+    M._tree_map(lambda _, a: a.requires_grad_(), params)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=card)
+    batch = {"tokens": tokens, "labels": tokens}
+    with pytest.raises(RuntimeError, match="flash_attention: the kernel has "
+                       "no backward"):
+        M.loss_fn(cfg, params, batch, use_kernels=True)
+    loss, _ = M.loss_fn(cfg, params, batch)
+    loss.backward()
+    assert torch.isfinite(params["embed"].grad).all()

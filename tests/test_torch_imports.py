@@ -30,6 +30,9 @@ COPIES = [
     "core/milp.py",
     "core/simulate.py",
     "core/fluid.py",
+    "data/__init__.py",
+    "data/pipeline.py",
+    "data/tokenizer.py",
     "mapreduce/partition.py",
     "mapreduce/engine.py",
     "models/config.py",
@@ -53,6 +56,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.kernels.moe_dispatch" in modules
     assert "repro_torch.serve.engine" in modules
     assert "repro_torch.launch.serve" in modules
+    for name in ("train.optim", "train.compression", "train.train_step",
+                 "train.checkpoint", "data.pipeline", "launch.train"):
+        assert f"repro_torch.{name}" in modules
     script = f"""
 import importlib, importlib.abc, sys
 

@@ -690,3 +690,46 @@ def test_moe_dispatch_on_cpu_takes_the_plain_version():
                 ops.dispatch_tokens(t, i, 3, 10)[0]):
         torch.testing.assert_close(out, want, atol=0.0, rtol=0.0)
     assert moe_dispatch.launches == before
+
+
+def _grad_inputs(seed=0):
+    """Small inputs of each kernel wrapper, floats requiring grad; the call
+    of each wrapper on them."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g).requires_grad_()
+
+    ids = torch.tensor([0, 2, 2, 1, 5], dtype=torch.int32)
+    slots = torch.tensor([0, 0, 1, 3, 1], dtype=torch.int32)
+    a = torch.rand((2, 5, 8), generator=g).requires_grad_()
+    return {
+        "segment_sum": lambda: segment_sum(r(5, 3), ids, 4),
+        "flash_attention": lambda: flash_attention(r(1, 4, 6, 8), r(1, 2, 6, 8),
+                                                   r(1, 2, 6, 8)),
+        "mamba_scan": lambda: mamba_scan(
+            r(2, 5, 8), torch.rand((2, 5, 8), generator=g).requires_grad_(),
+            -torch.rand((8, 4), generator=g).requires_grad_(), r(2, 5, 4),
+            r(2, 5, 4), r(8), r(2, 8, 4))[0],
+        "rglru_scan": lambda: rglru_scan(r(2, 5, 8), a, r(2, 8))[0],
+        "moe_dispatch": lambda: moe_dispatch(r(5, 3), ids, slots, 4, 2),
+    }
+
+
+def test_refuse_grad_raises_only_where_autograd_needs_a_backward():
+    t, plain = torch.ones(3).requires_grad_(), torch.ones(3)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        _build.refuse_grad("k", plain, None, t)
+    _build.refuse_grad("k", plain, None)
+    with torch.no_grad():
+        _build.refuse_grad("k", t)
+
+
+@pytest.mark.parametrize("name", sorted(_grad_inputs()))
+def test_wrappers_stay_differentiable_on_the_cpu(name):
+    """On a CPU tensor a wrapper computes its plain version, which autograd
+    differentiates; the guard against a cut graph is for the card's
+    kernels (``tests/test_torch_cuda.py``)."""
+    out = _grad_inputs()[name]()
+    assert out.requires_grad and out.grad_fn is not None
+    out.float().square().sum().backward()
