@@ -120,6 +120,32 @@ Phases:
     of step 4); and each kernel wrapper refusing a CUDA input that requires
     grad (11d).  No kernel runs on the training path: the reference trains
     on its plain path too.
+12. Multi-job schedules and online control on the paper's 8-data-centre
+    platform.  12a: four word-count tenants, each on its own 20M-word
+    Zipf(1.4) corpus with 35% of its input at sources g and g+4 and 5% at
+    the other six, calibrated, planned through ``GeoSchedule`` by
+    ``independent``, ``sequential`` and ``joint`` (and ``joint`` under
+    ``min_max_slowdown``) at 24 x 500, simulated and executed: word counts
+    exact, every non-empty reducer of every job launching ``segment_sum``
+    (counted from 0), every plan valid, joint's modeled aggregate no worse
+    than independent's, the fair objective's worst slowdown no worse than
+    independent's; the joint solve's first and warm walls and its device
+    busy share.  12b: on the same substrate, two shuffle links into the
+    frozen joint plan's busiest reducer step down 250x at half its
+    simulated makespan, a fifth job arrives at a quarter and a mapper dies
+    at 40%; ``run_online`` under all eight built-in policies with the
+    measured solve charge: ``static`` equals the frozen
+    ``simulate_schedule``, ``reactive`` with hysteresis inf equals
+    ``static`` in ``as_dict()`` and calls no solver, no solo swap before
+    the failure is modeled worse, no adopted shared stack's modeled
+    remaining rises, every plan valid and every makespan finite; then an
+    incremental co-replan of a 20-job snapshot (past the 16-job stack
+    cap).  12c: the joint, residual and shared-residual solvers for 25
+    steps from the same logits and the inputs each path builds, on the
+    card and on the CPU (x, y at atol 1e-4, the exact objective at rtol
+    1e-4; two sharper inputs no path builds are printed, unchecked), and
+    ``reactive_shared`` with its charge pinned on both devices, the
+    decisions that differ counted.
 
 After the phases, one ``{"kernels": [...]}`` line lists every kernel.
 
@@ -156,6 +182,8 @@ MODEL_TOL = (1e-3, 1e-3)
 #: main-path scale: the paper's 8-DC testbed and a 20M-word corpus
 N_DOCS, WORDS_PER_DOC, VOCAB = 20_000, 1_000, 1 << 20
 N_RESTARTS, STEPS = 24, 500
+#: anneal steps of a profiled solve
+PROFILE_STEPS = 50
 BATCH = 64
 KERNELS = ("segment_sum", "flash_attention", "rglru_scan", "mamba_scan",
            "moe_dispatch")
@@ -192,6 +220,13 @@ MAMBA_TOL = {"torch.float32": (5 * 2e-5, 3e-2), "torch.bfloat16": (5 * 2e-2, 3e-
 TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+#: multi-job schedules (phase 12): four tenants, every built-in schedule
+#: policy (joint under both objectives) at the default 24 x 500; online
+#: re-planning at run_online's default 8 restarts x 200 steps
+SCHED_JOBS = 4
+SCHED_POLICIES = (("independent", "makespan"), ("sequential", "makespan"),
+                  ("joint", "makespan"), ("joint", "min_max_slowdown"))
+ONLINE_RESTARTS, ONLINE_STEPS = 8, 200
 #: exponentials per second on the special function units: 16 a clock per
 #: SM at compute capability 9.0 (CUDA C++ programming guide, arithmetic
 #: instruction throughput), 132 SMs at the H100 SXM's 1.98 GHz boost clock
@@ -845,7 +880,7 @@ def profile_breakdown(fn, label, top=8):
                   f"{us / calls / 1e3!r} ms per call")
 
 
-def solver_device_share(device, n_restarts=N_RESTARTS, steps=50):
+def solver_device_share(device, n_restarts=N_RESTARTS, steps=PROFILE_STEPS):
     """Where a warm single-job solve spends its time: device activity
     (kernels, copies, fills) from ``torch.profiler`` over the host wall
     time of one ``optimize_plan`` call, and device launches per step."""
@@ -2292,6 +2327,494 @@ def phase_grad_guard(device):
         fail(f"{name} launched on an input that requires grad")
 
 
+# ---------------------------------------------------------------------------
+# multi-job schedules and online control (phase 12)
+# ---------------------------------------------------------------------------
+
+def tenant_fractions(g, n_sources=8):
+    """Job ``g``'s input layout: 35% at sources g and g+4, 5% at each of the
+    other six (a data-centre-local layout: the tenants collide on
+    different links)."""
+    import numpy as np
+
+    frac = np.full(n_sources, 0.05)
+    frac[[g % n_sources, (g + 4) % n_sources]] = 0.35
+    return frac
+
+
+def split_by_fractions(keys, values, fractions):
+    """Per-source record sets holding ``fractions`` of the corpus, in order."""
+    import numpy as np
+
+    cuts = np.round(np.cumsum(fractions)[:-1] * keys.shape[0]).astype(int)
+    return list(zip(np.split(keys, cuts), np.split(values, cuts)))
+
+
+def recording_ema(base):
+    """A ``SolveTimeEMA`` subclass that keeps every estimator made (in
+    ``made``) and each solve time it observed (in ``observed``): the
+    online loop's charge, read from outside."""
+
+    class RecordingEMA(base):
+        made = []
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.observed = []
+            RecordingEMA.made.append(self)
+
+        def observe(self, seconds, compiled=False):
+            self.observed.append((seconds, compiled))
+            super().observe(seconds, compiled)
+
+    return RecordingEMA
+
+
+def worst_slowdown(result, solo):
+    return max(r.makespan / s for r, s in zip(result.results, solo))
+
+
+def phase_schedule(device, n_docs=N_DOCS, words_per_doc=WORDS_PER_DOC,
+                   vocab=VOCAB, n_restarts=N_RESTARTS, steps=STEPS,
+                   n_jobs=SCHED_JOBS):
+    """Phase 12a: four word-count tenants on the 8-DC platform through
+    ``GeoSchedule``; returns (jobs, per_source, joint schedule, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import GeoJob, GeoSchedule
+    from repro_torch.core import (BARRIERS_GGL, Substrate, makespan,
+                                  planetlab_platform)
+    from repro_torch.core.plan import validate_plan
+    from repro_torch.kernels.segment_reduce import segment_sum
+    from repro_torch.mapreduce.apps import generate_documents, word_count
+
+    print(f"== phase 12a: a {n_jobs}-tenant schedule (GeoSchedule word count)",
+          flush=True)
+    sub = Substrate.of(planetlab_platform(8, alpha=1.0, seed=0))
+    wc = word_count(device=device)
+    t0 = time.perf_counter()
+    jobs, per_source, expect = [], [], []
+    for g in range(n_jobs):
+        keys, vals = generate_documents(n_docs=n_docs,
+                                        words_per_doc=words_per_doc,
+                                        vocab=vocab, seed=g + 1)
+        expect.append(np.unique(vals & ((1 << 20) - 1), return_counts=True))
+        frac = tenant_fractions(g, sub.nS)
+        per_source.append(split_by_fractions(keys, vals, frac))
+        view = sub.view(frac * keys.shape[0] * wc.record_bytes / 1e6, 1.0,
+                        name=f"tenant{g}")
+        jobs.append(GeoJob(view, wc, device=device).calibrate(per_source[-1]))
+    print(f"corpora and calibration: {n_jobs} x {words_per_doc * n_docs} "
+          f"words in {time.perf_counter() - t0:.3f} s; alpha "
+          f"{[j.platform.alpha for j in jobs]!r}")
+
+    def plan(policy, objective, steps=steps):
+        sched = GeoSchedule(jobs, device=device)
+        t = time.perf_counter()
+        sched.plan(policy, barriers=BARRIERS_GGL, n_restarts=n_restarts,
+                   steps=steps, objective=objective)
+        return sched, time.perf_counter() - t
+
+    launches = 0
+    results = {}
+    for policy, objective in SCHED_POLICIES:
+        sched, wall = plan(policy, objective)
+        for job in sched.jobs:
+            validate_plan(job.planned.plan.x, job.planned.plan.y)
+        t = time.perf_counter()
+        sim = sched.simulate()
+        sim_wall = time.perf_counter() - t
+        segment_sum.launches = 0
+        t = time.perf_counter()
+        report = sched.execute(per_source)
+        _sync(device)
+        exec_wall = time.perf_counter() - t
+        launched = segment_sum.launches
+        launches += launched
+        nonempty = sum(1 for job in report.jobs for k, _ in job.outputs
+                       if k.shape[0])
+        check(launched >= nonempty,
+              f"{policy}/{objective}: {launched} segment_sum launches for "
+              f"{nonempty} non-empty reducers")
+        for g, (job, (ek, ec)) in enumerate(zip(report.jobs, expect)):
+            k = np.concatenate([k for k, _ in job.outputs])
+            v = np.concatenate([v for _, v in job.outputs])
+            order = np.argsort(k, kind="stable")
+            check(np.array_equal(k[order], ek) and np.array_equal(v[order], ec),
+                  f"{policy}/{objective}: tenant {g}'s word counts differ "
+                  "from the numpy count")
+        for name, value in (("modeled", report.makespan_modeled),
+                            ("simulated", sim.makespan_sim),
+                            ("measured", report.makespan_measured)):
+            check(np.isfinite(value), f"{policy}: {name} makespan {value}")
+        results[policy, objective] = sched.planned
+        print(f"{policy:12s} {objective:17s} plan {wall:.3f} s  modeled "
+              f"{report.makespan_modeled!r} s  simulated {sim.makespan_sim!r}"
+              f" s  measured {report.makespan_measured!r} s  per job modeled "
+              f"{[r.makespan for r in sched.planned.results]!r}  simulate "
+              f"{sim_wall:.3f} s  execute {exec_wall:.3f} s  segment_sum "
+              f"launches {launched} "
+              f"(non-empty reducers {nonempty})")
+        if (policy, objective) == ("joint", "makespan"):
+            joint, first = sched, wall
+    check(launches > 0, "the schedule path never launched segment_sum")
+    check(results["joint", "makespan"].makespan
+          <= results["independent", "makespan"].makespan,
+          "joint's modeled aggregate is worse than independent's")
+    indep = results["independent", "makespan"]
+    solo = [makespan(j.platform, r.plan, BARRIERS_GGL)
+            for j, r in zip(jobs, indep.results)]
+    worst = {key: worst_slowdown(results[key], solo) for key in results}
+    check(worst["joint", "min_max_slowdown"]
+          <= worst["independent", "makespan"],
+          "min_max_slowdown's worst slowdown is worse than independent's")
+    print(f"worst slowdown (contended over sole-tenant makespan of the "
+          f"independent plan): {({'/'.join(k): v for k, v in worst.items()})!r}"
+          f"; min_max_slowdown <= makespan objective's: "
+          f"{worst['joint', 'min_max_slowdown'] <= worst['joint', 'makespan']}")
+    _, warm = plan("joint", "makespan")
+    print(f"joint solve {n_restarts}x{steps}, {n_jobs} jobs: first {first:.3f}"
+          f" s, warm {warm:.3f} s")
+    if device.type == "cuda":  # 50 steps, as phase 4: a profile's
+        # post-processing grows with its host events
+        from torch.profiler import ProfilerActivity, profile
+
+        plan("joint", "makespan", steps=PROFILE_STEPS)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            plan("joint", "makespan", steps=PROFILE_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        busy_us, n_events, _ = device_activity(prof)
+        label = f"joint solve profile {n_restarts}x{PROFILE_STEPS}"
+        if n_events:
+            print(f"{label}: wall {wall!r} s  device busy {busy_us / 1e6!r} s"
+                  f"  busy share {busy_us / 1e6 / wall!r}  device events "
+                  f"{n_events} ({n_events / PROFILE_STEPS!r} per step, the "
+                  "independent solve's included)")
+        else:
+            print(f"{label}: wall {wall!r} s, device time not measured (the "
+                  "profiler recorded no device activity)")
+    return jobs, joint, launches
+
+
+def traced_online_setup(jobs, joint):
+    """Phase 12b's substrate and traffic, fixed by the frozen joint plan:
+    the two shuffle links carrying most of its traffic into its busiest
+    reducer step down 250x at half its simulated makespan, a fifth job
+    (job 0's layout rotated by 2) arrives at a quarter of it, and the
+    mapper with the most planned map input dies at 40% of it."""
+    import numpy as np
+    from repro_torch.api import GeoJob
+    from repro_torch.core import (BARRIERS_GGL, CapacityTrace, FailureEvent,
+                                  SimConfig)
+    from repro_torch.core.makespan import analytic_volumes
+
+    frozen = joint.simulate().makespan_sim
+    sub = joint.substrate
+    plans = joint.planned.plans  # the jobs' own results are the last plan's
+    vols = [analytic_volumes(j.platform.D, plan.x, plan.y, j.platform.alpha,
+                             xp=np) for j, plan in zip(jobs, plans)]
+    shuffle = sum(v[2] for v in vols)
+    busiest = int(np.argmax(shuffle.sum(axis=0)))
+    links = [int(m) for m in np.argsort(shuffle[:, busiest])[::-1][:2]]
+    mapper = int(np.argmax(sum(v[1] for v in vols)))
+    t_drift, t_arrival, t_fail = 0.5 * frozen, 0.25 * frozen, 0.4 * frozen
+    traced = sub.with_traces({
+        f"shuffle[m{m}->r{busiest}]": CapacityTrace.step(
+            float(sub.B_mr[m, busiest]), float(sub.B_mr[m, busiest]) / 250.0,
+            t_drift)
+        for m in links
+    })
+    tjobs = [GeoJob(traced.view(j.platform.D, j.platform.alpha,
+                                name=j.platform.name), device=j.device)
+             .with_plan(plan, BARRIERS_GGL) for j, plan in zip(jobs, plans)]
+    p0 = jobs[0].platform
+    late = traced.view(np.roll(p0.D, 2), p0.alpha, name="late")
+    cfg = SimConfig(barriers=BARRIERS_GGL,
+                    failures=[FailureEvent.mapper_kill(mapper, t_fail)])
+    print(f"frozen joint schedule simulated {frozen!r} s; shuffle links "
+          f"m{links}->r{busiest} step down 250x at {t_drift!r} s; a fifth "
+          f"job arrives at {t_arrival!r} s; mapper {mapper} dies at "
+          f"{t_fail!r} s")
+    return traced, tjobs, late, t_arrival, cfg, frozen
+
+
+def stack_never_rises(decisions):
+    """Whether, at every decision point where a shared stack was adopted,
+    the stack's largest modeled remaining did not rise."""
+    groups = {}
+    for d in decisions:
+        if d.action != "inject":
+            groups.setdefault((d.time, d.event), []).append(d)
+    return all(
+        max(d.modeled_after for d in group)
+        <= max(d.modeled_before for d in group)
+        for group in groups.values() if any(d.action == "swap" for d in group)
+    )
+
+
+def phase_online(device, jobs, joint, n_restarts=ONLINE_RESTARTS,
+                 steps=ONLINE_STEPS):
+    """Phase 12b: ``run_online`` under every built-in policy, with the
+    measured solve charge; then a 20-job incremental co-replan."""
+    import numpy as np
+    import repro_torch.api as api
+    from repro_torch.api import Arrival, GeoJob, GeoSchedule
+    from repro_torch.core import (BARRIERS_GGL, OnlineConfig, SimConfig,
+                                  available_online_policies, get_online_config,
+                                  open_schedule, replan_schedule,
+                                  simulate_schedule, solver_cache_stats)
+    from repro_torch.core.optimize import _INCREMENTAL_STACK_CAP
+    from repro_torch.core.plan import validate_plan
+
+    print("== phase 12b: online control (run_online, every built-in policy)",
+          flush=True)
+    traced, tjobs, late, t_arrival, cfg, frozen = traced_online_setup(
+        jobs, joint)
+    sched = GeoSchedule(tjobs, device=device).with_plans()
+    late_job = GeoJob(late, device=device)
+
+    real_ema = api.SolveTimeEMA
+    api.SolveTimeEMA = recorded = recording_ema(real_ema)
+
+    def run(policy):
+        extra = ({"replan_dt": 0.1 * frozen}
+                 if policy.startswith("horizon") else {})
+        recorded.made.clear()
+        calls = solver_cache_stats()["calls"]
+        t = time.perf_counter()
+        report = sched.run_online(
+            policy, arrivals=[Arrival(late_job, t_arrival)], cfg=cfg,
+            n_restarts=n_restarts, steps=steps, **extra)
+        wall = time.perf_counter() - t
+        return (report, wall, solver_cache_stats()["calls"] - calls,
+                recorded.made[0])
+
+    try:
+        runs = {policy: run(policy) for policy in available_online_policies()}
+    finally:
+        api.SolveTimeEMA = real_ema
+    reports = {}
+    for policy, (report, wall, solves, ema) in runs.items():
+        reports[policy] = report
+        warm = [s for s, compiled in ema.observed if not compiled]
+        cold = [s for s, compiled in ema.observed if compiled]
+        for value in (report.makespan_online, report.makespan_static):
+            check(np.isfinite(value), f"{policy}: makespan {value}")
+        for plan in report.plans:
+            validate_plan(plan.x, plan.y)
+        print(f"{policy:21s} wall {wall:.3f} s  online "
+              f"{report.makespan_online!r} s  static "
+              f"{report.makespan_static!r} s  decisions "
+              f"{len(report.decisions)}  swaps {len(report.swaps)}  rejects "
+              f"{len(report.rejected)}  solver calls {solves}  warm solve s "
+              f"{warm!r}  first-call solve s {cold!r}  EMA charge "
+              f"{ema.charge_s()!r} s  charged {report.charged_s!r} s")
+        if get_online_config(policy).shared:
+            check(stack_never_rises(report.decisions),
+                  f"{policy}: an adopted stack's modeled remaining rose")
+            continue
+        worse = [d for d in report.swaps
+                 if d.modeled_after >= d.modeled_before]
+        check(all(d.time >= cfg.failures[0].time for d in worse),
+              f"{policy}: a swap before the failure is modeled worse: "
+              f"{worse}")
+        if worse:
+            print(f"  {len(worse)} swaps at or after the failure are modeled "
+                  "worse than 'before', which is priced on the live view "
+                  "while 'after' is priced with the dead mapper collapsed "
+                  "(the reference's record)")
+    static = reports["static"]
+    entries = [(j.platform, j.planned.plan, cfg) for j in sched.jobs]
+    frozen_sim = simulate_schedule(
+        entries + [(late, late_job.planned.plan,
+                    dataclasses.replace(cfg, start_time=t_arrival))],
+        substrate=traced)
+    check(static.sim.as_dict() == frozen_sim.as_dict()
+          and static.static_sim.as_dict() == frozen_sim.as_dict(),
+          "static differs from the frozen simulate_schedule")
+    calls = solver_cache_stats()["calls"]
+    inert = sched.run_online(
+        "reactive", arrivals=[Arrival(late_job, t_arrival)], cfg=cfg,
+        n_restarts=n_restarts, steps=steps,
+        online=OnlineConfig(shared=True, hysteresis=float("inf")))
+    check(solver_cache_stats()["calls"] == calls,
+          "hysteresis=inf called a solver")
+    a, b = inert.as_dict(), static.as_dict()
+    a.pop("policy"), b.pop("policy")
+    check(json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True),
+          "reactive with hysteresis=inf differs from static")
+    print("static equals the frozen simulate_schedule; reactive with "
+          "hysteresis=inf equals static in as_dict() and called no solver")
+
+    # the 20-job co-replan: five copies of the four layouts, mid-run
+    crowd = [(traced.view(j.platform.D, j.platform.alpha,
+                          name=f"{j.platform.name}/{c}"), j.planned.plan,
+              SimConfig(barriers=BARRIERS_GGL))
+             for c in range(5) for j in tjobs]
+    eng = open_schedule(crowd, substrate=traced)
+    eng.run_until(0.1 * frozen)
+    snap = eng.snapshot()
+    live = [jp for jp in snap.jobs if not jp.done]
+    check(len(live) > _INCREMENTAL_STACK_CAP,
+          f"{len(live)} live jobs: not past the stack cap")
+    t = time.perf_counter()
+    res = replan_schedule(traced.at(snap.time), [e[1] for e in crowd], snap,
+                          barriers=BARRIERS_GGL, n_restarts=n_restarts,
+                          steps=steps, incremental=True, device=device)
+    _sync(device)
+    wall = time.perf_counter() - t
+    check(res.makespan <= max(res.before), "the co-replan is modeled worse")
+    changed = sum(p is not e[1] for p, e in zip(res.plans, crowd))
+    print(f"replan_schedule incremental, {len(live)} live jobs (stack cap "
+          f"{_INCREMENTAL_STACK_CAP}): {wall:.3f} s  modeled remaining "
+          f"{max(res.before)!r} -> {res.makespan!r} s  plans changed "
+          f"{changed}")
+    return sched, late_job, t_arrival, cfg
+
+
+def _held(label, got, want, atol, rtol=0.0):
+    """max |got - want| of two tensors, after checking it is within
+    ``atol + rtol·|want|``."""
+    import torch
+
+    got, want = got.detach().cpu(), want.detach().cpu()
+    err = (got - want).abs()
+    check(bool(torch.all(err <= atol + rtol * want.abs())),
+          f"{label}: max |err| {float(err.max())} over atol {atol} rtol "
+          f"{rtol}")
+    return float(err.max())
+
+
+def phase_card_vs_cpu(device, jobs, joint, sched, late_job, t_arrival, cfg,
+                      steps=25):
+    """Phase 12c: the three schedule solvers for ``steps`` steps from the
+    same logits on the card and on the CPU, then ``reactive_shared`` with
+    the charge pinned on both devices."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Arrival, GeoSchedule
+    from repro_torch.core import (BARRIERS_GGL, JobProgress, get_online_config,
+                                  makespan, open_schedule, uniform_plan)
+    from repro_torch.core import optimize as O
+
+    print("== phase 12c: the schedule solvers on the card against the CPU",
+          flush=True)
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    sub = joint.substrate
+    J, nS, nM, nR = len(jobs), sub.nS, sub.nM, sub.nR
+    R = N_RESTARTS
+    D = np.stack([j.platform.D for j in jobs])
+    refs = [makespan(j.platform, r.plan, BARRIERS_GGL)
+            for j, r in zip(jobs, joint.planned.results)]
+    # the temperature's unit as the joint policy sets it: job 0's uniform
+    # plan; the joint plan's own makespan is a sharper one, run unchecked
+    scales = {"uniform": makespan(jobs[0].platform,
+                                  uniform_plan(jobs[0].platform),
+                                  BARRIERS_GGL),
+              "planned": refs[0]}
+    joint_in = [D, [j.platform.alpha for j in jobs], sub.B_sm, sub.B_mr,
+                sub.C_m, sub.C_r, rng.normal(0, 1.5, size=(R, J, nS, nM)),
+                rng.normal(0, 1.5, size=(R, J, nR)), scales["uniform"], refs]
+    kappa = max(1e-3 * float(D.sum()) / nM, 1e-9)
+    eng = open_schedule([(j.platform, j.planned.plan, cfg) for j in sched.jobs],
+                        substrate=sched.substrate)
+    eng.run_until(t_arrival)
+    progs = [jp for jp in eng.snapshot().jobs if not jp.done]
+    check(len(progs) == J, "a job finished before the snapshot")
+    caps = [np.stack([O._degraded_caps(sub, jp)[c] for jp in progs])
+            for c in range(4)]
+    spans = O.score_residual_shared(sub, progs,
+                                    [j.planned.plan for j in sched.jobs],
+                                    BARRIERS_GGL)
+    Rr = ONLINE_RESTARTS
+    resid = list(JobProgress.stack(progs))
+    alpha = [jp.alpha for jp in progs]
+    lx, ly = rng.normal(0, 1.5, size=(Rr, J, nS, nM)), \
+        rng.normal(0, 1.5, size=(Rr, J, nR))
+    # the shared solve's inputs as replan_schedule builds them for 4 live
+    # jobs (all annealed, so no background demand; kappa from the
+    # residual, in half-decade buckets)
+    shapes = ((nS, nM), (nM,), (nM, nR), (nR,))
+    kappa_r = max(1e-3 * sum(jp.remaining_mb()["reduce"] for jp in progs)
+                  / nM, 1e-9)
+    kappa_r = float(10.0 ** (round(np.log10(kappa_r) * 2.0) / 2.0))
+
+    def joint_solve(dev):
+        return O._solve_joint_batch(
+            *(O._f32(a, dev) for a in joint_in), kappa=kappa,
+            barriers=BARRIERS_GGL, steps=steps)
+
+    def batch_solve(dev):
+        t = lambda a: O._f32(a, dev)  # noqa: E731
+        return O._solve_residual_batch_many(
+            tuple(map(t, resid)), tuple(map(t, caps)), t(alpha),
+            t(lx.swapaxes(0, 1)), t(ly.swapaxes(0, 1)), t(spans),
+            barriers=BARRIERS_GGL, steps=steps)
+
+    def shared_solve(dev, bg, kappa=kappa_r):
+        t = lambda a: O._f32(a, dev)  # noqa: E731
+        return O._solve_residual_shared_batch(
+            tuple(map(t, resid)), tuple(map(t, caps)), t(alpha),
+            tuple(map(t, bg)), t(lx), t(ly), t(max(spans)), kappa=kappa,
+            barriers=BARRIERS_GGL, steps=steps)
+
+    def diff(solve, *args):
+        return [(a.cpu() - b).abs().max().item()
+                for a, b in zip(solve(device, *args), solve(cpu, *args))]
+
+    no_bg = [np.zeros(shape) for shape in shapes]
+    for name, solve, args in (
+            ("_solve_joint_batch", joint_solve, ()),
+            ("_solve_residual_batch_many", batch_solve, ()),
+            ("_solve_residual_shared_batch", shared_solve, (no_bg,))):
+        (gx, gy, ge), (wx, wy, we) = solve(device, *args), solve(cpu, *args)
+        errs = (_held(f"{name} x", gx, wx, 1e-4),
+                _held(f"{name} y", gy, wy, 1e-4),
+                _held(f"{name} exact", ge, we, 0.0, 1e-4))
+        print(f"{name} {steps} steps, card against CPU: max |err| x "
+              f"{errs[0]!r}, y {errs[1]!r}, exact {errs[2]!r} (x, y atol "
+              "1e-4; exact rtol 1e-4)")
+    # findings, not checks: inputs no path builds, where more gradient
+    # entries sit at rounding level (Adam's g/sqrt(v) scales each to a
+    # full step whatever its size)
+    joint_in[8] = scales["planned"]
+    print(f"unchecked: _solve_joint_batch {steps} steps at the joint plan's "
+          f"makespan as the temperature unit ({scales['planned']!r} s, the "
+          f"policy's is {scales['uniform']!r} s), card against CPU: max "
+          f"|err| x, y, exact {diff(joint_solve)!r}")
+    busy = [rng.uniform(0.0, 50.0, size=shape) for shape in shapes]
+    for kappa in (kappa_r, 10.0 ** 0.5):
+        print(f"unchecked: _solve_residual_shared_batch {steps} steps with a "
+              f"random background demand (U(0, 50) MB a resource), kappa "
+              f"{kappa!r} MB (the path's is {kappa_r!r}), card against CPU: "
+              f"max |err| x, y, exact {diff(shared_solve, busy, kappa)!r}")
+
+    pinned = dataclasses.replace(get_online_config("reactive_shared"),
+                                 solver_cost_s=1.0)
+    timelines = {}
+    for dev in (device, cpu):
+        t = time.perf_counter()
+        report = GeoSchedule(sched.jobs, device=dev).with_plans().run_online(
+            "reactive_shared", arrivals=[Arrival(late_job, t_arrival)],
+            cfg=cfg, online=pinned)
+        timelines[dev.type] = report
+        print(f"reactive_shared on {dev.type} (charge pinned to 1 s): wall "
+              f"{time.perf_counter() - t:.3f} s  online "
+              f"{report.makespan_online!r} s")
+        print(report.timeline())
+    card, host = timelines[device.type], timelines["cpu"]
+    key = lambda d: (d.time, d.event, d.job, d.action)  # noqa: E731
+    differ = sum(key(a) != key(b) for a, b in zip(card.decisions,
+                                                  host.decisions))
+    differ += abs(len(card.decisions) - len(host.decisions))
+    print(f"reactive_shared decisions that differ, card against CPU: "
+          f"{differ} of {max(len(card.decisions), len(host.decisions))}")
+
+
 def free_device_memory(device) -> None:
     """Return what the finished phases held to the card."""
     import gc
@@ -2342,6 +2865,14 @@ def main() -> None:
     phase_training_float32_cut(device)
     phase_checkpoint_resume(device)
     phase_grad_guard(device)
+    free_device_memory(device)
+    jobs, joint, schedule_launches = phase_schedule(device)
+    online = phase_online(device, jobs, joint)
+    phase_card_vs_cpu(device, jobs, joint, *online)
+    segsum = entries[0]
+    segsum["launches_by_path"] = {"GeoJob": segsum["launches"],
+                                  "GeoSchedule": schedule_launches}
+    segsum["launches"] += schedule_launches
     flash = next(e for e in entries if e["name"] == "flash_attention")
     flash["launches_by_path"] = {SERVE_ARCH: flash["launches"],
                                  GRANITE_ARCH: granite["flash_attention"]}

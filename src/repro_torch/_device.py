@@ -11,7 +11,8 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["default_device", "resolve_device", "set_default_device"]
+__all__ = ["default_device", "resolve_device", "set_default_device",
+           "synchronize"]
 
 DeviceLike = Union[str, torch.device]
 
@@ -39,3 +40,11 @@ def resolve_device(device: Optional[DeviceLike] = None) -> torch.device:
             "to run on the CPU"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait until ``device`` has finished its queued work (a no-op on the
+    CPU): read a host clock after this, or it times the launches, not the
+    work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -998,3 +998,97 @@ def test_loss_with_kernels_fails_loudly_on_the_card(card):
     loss, _ = M.loss_fn(cfg, params, batch)
     loss.backward()
     assert torch.isfinite(params["embed"].grad).all()
+
+
+# ---------------------------------------------------------------------------
+# multi-job schedules and online control: the solves on the card
+# ---------------------------------------------------------------------------
+
+def _schedule_views(n_jobs=3):
+    """``n_jobs`` job views of the 8-node PlanetLab substrate, each with
+    most of its input at two sources of its own."""
+    from repro_torch.core import Substrate, planetlab_platform
+
+    sub = Substrate.of(planetlab_platform(8, alpha=1.0, seed=0))
+    views = []
+    for g in range(n_jobs):
+        D = np.full(sub.nS, 100.0)
+        D[g] = D[g + 4] = 700.0
+        views.append(sub.view(D, 1.0, name=f"job{g}"))
+    return sub, views
+
+
+@pytest.mark.parametrize("objective", ["makespan", "min_max_slowdown"])
+def test_joint_schedule_on_the_card_matches_the_cpu(card, objective):
+    """``optimize_schedule("joint")`` at 25 steps: the card's float32
+    anneal (TF32 off) and the CPU's agree, so their float64-priced
+    per-job makespans do to 1e-4."""
+    from repro_torch.core import optimize_schedule
+
+    _, views = _schedule_views()
+    kw = dict(policy="joint", n_restarts=6, steps=25, objective=objective)
+    on_card = optimize_schedule(views, device=card, **kw)
+    on_cpu = optimize_schedule(views, device="cpu", **kw)
+    assert on_card.makespan == pytest.approx(on_cpu.makespan, rel=1e-4)
+    for a, b in zip(on_card.results, on_cpu.results):
+        assert a.makespan == pytest.approx(b.makespan, rel=1e-4)
+        np.testing.assert_allclose(a.plan.x, b.plan.x, atol=1e-4)
+
+
+@pytest.mark.parametrize("incremental", [False, True])
+def test_replan_schedule_on_the_card_matches_the_cpu(card, incremental):
+    from repro_torch.core import (SimConfig, open_schedule, replan_schedule,
+                                  uniform_plan)
+
+    sub, views = _schedule_views()
+    plans = [uniform_plan(v) for v in views]
+    eng = open_schedule([(v, p, SimConfig()) for v, p in zip(views, plans)],
+                        substrate=sub)
+    eng.run_until(1.0)
+    snap = eng.snapshot()
+    kw = dict(n_restarts=4, steps=25, seed=3, incremental=incremental)
+    on_card = replan_schedule(sub, plans, snap, device=card, **kw)
+    on_cpu = replan_schedule(sub, plans, snap, device="cpu", **kw)
+    assert on_card.before == on_cpu.before
+    assert on_card.makespan == pytest.approx(on_cpu.makespan, rel=1e-4)
+    for a, b, inc in zip(on_card.plans, on_cpu.plans, plans):
+        assert (a is inc) == (b is inc)
+
+
+def test_run_online_times_its_solves_on_the_card(card, monkeypatch):
+    """Every timed solve sits between two synchronizations of the card,
+    and a second run's solves (their keys seen) are warm samples of the
+    charge's moving average."""
+    from repro_torch import api
+    from repro_torch.api import Arrival, GeoJob, GeoSchedule
+    from repro_torch.core import CapacityTrace
+
+    emas, syncs = [], []
+
+    class Recording(api.SolveTimeEMA):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            emas.append(self)
+
+    real_sync = api.synchronize
+    monkeypatch.setattr(api, "SolveTimeEMA", Recording)
+    monkeypatch.setattr(api, "synchronize",
+                        lambda dev: (syncs.append(dev), real_sync(dev)))
+    sub, views = _schedule_views(2)
+    sub = sub.with_traces({"shuffle[m0->r0]": CapacityTrace.step(
+        sub.B_mr[0, 0], sub.B_mr[0, 0] / 250.0, 20.0)})
+    views = [sub.view(v.D, v.alpha, name=v.name) for v in views]
+    for _ in range(2):
+        sched = GeoSchedule([GeoJob(views[0])], device=card).plan(
+            "independent", n_restarts=4, steps=50)
+        report = sched.run_online(
+            "reactive_incremental", arrivals=[Arrival(GeoJob(views[1]), 5.0)],
+            n_restarts=4, steps=50)
+        assert all(np.isfinite(d.modeled_after) for d in report.decisions)
+    first, second = emas
+    observed = first.samples + first.excluded
+    assert observed >= 1 and second.samples >= 1
+    assert len(syncs) == 2 * (observed + second.samples + second.excluded)
+    assert all(torch.device(d).type == "cuda" for d in syncs)
+    assert second.ema > 0.0 and second.charge_s() == 10.0 ** (
+        round(np.log10(second.ema) * 2.0) / 2.0)

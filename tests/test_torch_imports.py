@@ -144,3 +144,71 @@ def test_word_count_reduce_raises_without_cuda(no_cuda):
     uniq, sums = word_count(device="cpu").reduce_fn(keys, counts)
     np.testing.assert_array_equal(uniq, [1, 2])
     np.testing.assert_array_equal(sums, [7, 5])
+
+
+def _two_jobs():
+    from repro_torch.core import Substrate
+
+    sub = Substrate.of(planetlab_platform(2, seed=0))
+    return [sub.view(np.full(sub.nS, 100.0 * (g + 1)), 1.0, name=f"j{g}")
+            for g in range(2)]
+
+
+def _schedule(device=None):
+    from repro_torch.api import GeoJob, GeoSchedule
+
+    return GeoSchedule([GeoJob(v) for v in _two_jobs()], device=device)
+
+
+def _plan_schedule(device):
+    return _schedule(device).plan("joint", n_restarts=2, steps=3).planned
+
+
+def _optimize_schedule(device):
+    from repro_torch.core import optimize_schedule
+
+    return optimize_schedule(_two_jobs(), "joint", n_restarts=2, steps=3,
+                             device=device)
+
+
+def _replan(device):
+    from repro_torch.core import replan, uniform_plan
+
+    p = _two_jobs()[0]
+    return replan(p, uniform_plan(p), n_restarts=2, steps=3, device=device)
+
+
+def _replan_batch(device):
+    from repro_torch.core import replan_batch, uniform_plan
+
+    ps = _two_jobs()
+    return replan_batch(ps, [uniform_plan(p) for p in ps], n_restarts=2,
+                        steps=3, device=device)
+
+
+def _replan_schedule(device):
+    from repro_torch.core import (JobProgress, Substrate, replan_schedule,
+                                  uniform_plan)
+
+    ps = _two_jobs()
+    return replan_schedule(Substrate.of(ps[0]), [uniform_plan(p) for p in ps],
+                           [JobProgress.fresh(p, job=g)
+                            for g, p in enumerate(ps)],
+                           n_restarts=2, steps=3, device=device)
+
+
+def _run_online(device):
+    sched = _schedule(device)
+    for job in sched.jobs:
+        job.plan("uniform", device="cpu")
+    return sched.with_plans().run_online("reactive", n_restarts=2, steps=3)
+
+
+@pytest.mark.parametrize("entry", [_plan_schedule, _optimize_schedule, _replan,
+                                   _replan_batch, _replan_schedule,
+                                   _run_online],
+                         ids=lambda f: f.__name__.lstrip("_"))
+def test_schedule_and_online_entry_points_raise_without_cuda(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry(None)
+    assert entry("cpu") is not None
