@@ -146,6 +146,28 @@ Phases:
     1e-4; two sharper inputs no path builds are printed, unchecked), and
     ``reactive_shared`` with its charge pinned on both devices, the
     decisions that differ counted.
+13. Multi-stage pipelines on the same platform.  13a: a 3-stage word-count
+    chain through ``GeoPipeline`` on phase 2's corpus (stage 0 counts the
+    words, stages 1 and 2 count the low 20 bits of the counts before),
+    its downstream alphas and out_scales measured by one uniform-plan
+    probe run; planned ``stagewise`` and ``end_to_end`` at 24 x 500,
+    simulated and executed: every stage's outputs equal numpy's chain,
+    every non-empty reducer of every stage launches ``segment_sum``
+    (counted from 0), every plan valid, ``end_to_end`` no worse modeled,
+    every makespan finite; the ``end_to_end`` plan's first and warm walls
+    and the busy share of a 50-step ``_solve_pipeline_batch``; then the
+    example's two-node ``pipeline_pair`` at 8 x 250 (``end_to_end`` no
+    worse modeled and at least 20% below ``stagewise`` simulated).  13b:
+    the chain's first two stages on tenant 0's layout inside a
+    ``GeoSchedule`` with tenants 1 and 2, planned ``joint`` /
+    ``end_to_end``: ``execute`` refused, ``run_online("static")`` equal to
+    the frozen ``simulate()``, ``reactive`` with the measured charge
+    through a 250x drift of the two links into the pipeline's stage-1
+    busiest reducer valid and finite.  13c: ``_solve_pipeline_batch`` for
+    25 steps from the inputs 13a's ``end_to_end`` built, on the card and
+    on the CPU, in float64 (x, y at atol 1e-4, the exact span at rtol
+    1e-4); the float32 runs, whose rounding alone moves x by more than
+    that at these inputs, are printed.
 
 After the phases, one ``{"kernels": [...]}`` line lists every kernel.
 
@@ -227,6 +249,15 @@ SCHED_JOBS = 4
 SCHED_POLICIES = (("independent", "makespan"), ("sequential", "makespan"),
                   ("joint", "makespan"), ("joint", "min_max_slowdown"))
 ONLINE_RESTARTS, ONLINE_STEPS = 8, 200
+#: pipelines (phase 13): a 3-stage word-count chain, each stage after the
+#: first counting the counts of the one before (its map keeps the low 20
+#: bits of a value, as word count's does); the example's pipeline_pair
+#: at its own 8 x 250
+PIPE_STAGES = 3
+COUNT_MASK = (1 << 20) - 1
+PIPE_PAIR_OPT = dict(n_restarts=8, steps=250)
+#: seeded one-ulp moves of the pipeline solver's logits in 13c
+ULP_SEEDS = 4
 #: exponentials per second on the special function units: 16 a clock per
 #: SM at compute capability 9.0 (CUDA C++ programming guide, arithmetic
 #: instruction throughput), 132 SMs at the H100 SXM's 1.98 GHz boost clock
@@ -2374,6 +2405,31 @@ def worst_slowdown(result, solo):
     return max(r.makespan / s for r, s in zip(result.results, solo))
 
 
+def tenant_jobs(device, n_jobs=SCHED_JOBS, n_docs=N_DOCS,
+                words_per_doc=WORDS_PER_DOC, vocab=VOCAB):
+    """12a's tenants on the 8-DC platform, each on its own Zipf corpus and
+    calibrated; returns (jobs, per-source record sets, numpy's counts)."""
+    import numpy as np
+    from repro_torch.api import GeoJob
+    from repro_torch.core import Substrate, planetlab_platform
+    from repro_torch.mapreduce.apps import generate_documents, word_count
+
+    sub = Substrate.of(planetlab_platform(8, alpha=1.0, seed=0))
+    wc = word_count(device=device)
+    jobs, per_source, expect = [], [], []
+    for g in range(n_jobs):
+        keys, vals = generate_documents(n_docs=n_docs,
+                                        words_per_doc=words_per_doc,
+                                        vocab=vocab, seed=g + 1)
+        expect.append(np.unique(vals & COUNT_MASK, return_counts=True))
+        frac = tenant_fractions(g, sub.nS)
+        per_source.append(split_by_fractions(keys, vals, frac))
+        view = sub.view(frac * keys.shape[0] * wc.record_bytes / 1e6, 1.0,
+                        name=f"tenant{g}")
+        jobs.append(GeoJob(view, wc, device=device).calibrate(per_source[-1]))
+    return jobs, per_source, expect
+
+
 def phase_schedule(device, n_docs=N_DOCS, words_per_doc=WORDS_PER_DOC,
                    vocab=VOCAB, n_restarts=N_RESTARTS, steps=STEPS,
                    n_jobs=SCHED_JOBS):
@@ -2381,29 +2437,16 @@ def phase_schedule(device, n_docs=N_DOCS, words_per_doc=WORDS_PER_DOC,
     ``GeoSchedule``; returns (jobs, per_source, joint schedule, launches)."""
     import numpy as np
     import torch
-    from repro_torch.api import GeoJob, GeoSchedule
-    from repro_torch.core import (BARRIERS_GGL, Substrate, makespan,
-                                  planetlab_platform)
+    from repro_torch.api import GeoSchedule
+    from repro_torch.core import BARRIERS_GGL, makespan
     from repro_torch.core.plan import validate_plan
     from repro_torch.kernels.segment_reduce import segment_sum
-    from repro_torch.mapreduce.apps import generate_documents, word_count
 
     print(f"== phase 12a: a {n_jobs}-tenant schedule (GeoSchedule word count)",
           flush=True)
-    sub = Substrate.of(planetlab_platform(8, alpha=1.0, seed=0))
-    wc = word_count(device=device)
     t0 = time.perf_counter()
-    jobs, per_source, expect = [], [], []
-    for g in range(n_jobs):
-        keys, vals = generate_documents(n_docs=n_docs,
-                                        words_per_doc=words_per_doc,
-                                        vocab=vocab, seed=g + 1)
-        expect.append(np.unique(vals & ((1 << 20) - 1), return_counts=True))
-        frac = tenant_fractions(g, sub.nS)
-        per_source.append(split_by_fractions(keys, vals, frac))
-        view = sub.view(frac * keys.shape[0] * wc.record_bytes / 1e6, 1.0,
-                        name=f"tenant{g}")
-        jobs.append(GeoJob(view, wc, device=device).calibrate(per_source[-1]))
+    jobs, per_source, expect = tenant_jobs(device, n_jobs, n_docs,
+                                           words_per_doc, vocab)
     print(f"corpora and calibration: {n_jobs} x {words_per_doc * n_docs} "
           f"words in {time.perf_counter() - t0:.3f} s; alpha "
           f"{[j.platform.alpha for j in jobs]!r}")
@@ -2815,6 +2858,434 @@ def phase_card_vs_cpu(device, jobs, joint, sched, late_job, t_arrival, cfg,
           f"{differ} of {max(len(card.decisions), len(host.decisions))}")
 
 
+# ---------------------------------------------------------------------------
+# multi-stage pipelines (phase 13)
+# ---------------------------------------------------------------------------
+
+def count_chain(words, n_stages=PIPE_STAGES):
+    """numpy's word-count chain: stage 0 counts the words, each later stage
+    counts the masked counts of the one before."""
+    import numpy as np
+
+    out, values = [], words
+    for _ in range(n_stages):
+        out.append(np.unique(values & COUNT_MASK, return_counts=True))
+        values = out[-1][1]
+    return out
+
+
+def check_chain(report, expect, label):
+    """Every stage's outputs, concatenated over reducers, equal numpy's."""
+    import numpy as np
+
+    for k, (job, (ek, ec)) in enumerate(zip(report.jobs, expect)):
+        keys = np.concatenate([k_ for k_, _ in job.outputs])
+        vals = np.concatenate([v for _, v in job.outputs])
+        order = np.argsort(keys, kind="stable")
+        check(np.array_equal(keys[order], ek)
+              and np.array_equal(vals[order], ec),
+              f"{label}: stage {k}'s outputs differ from numpy's chain")
+
+
+def counting_word_count(device, calls):
+    """Word count whose reduce appends, for each reducer it is handed, the
+    ``segment_sum`` launches that reducer made."""
+    from repro_torch.kernels.segment_reduce import segment_sum
+    from repro_torch.mapreduce.apps import word_count
+
+    wc = word_count(device=device)
+
+    def reduce_fn(keys, values):
+        before = segment_sum.launches
+        out = wc.reduce_fn(keys, values)
+        calls.append(segment_sum.launches - before)
+        return out
+
+    return dataclasses.replace(wc, reduce_fn=reduce_fn)
+
+
+def timed_plan(pipe, device, *args, **kwargs):
+    """One ``GeoPipeline.plan`` between two synchronizations; seconds."""
+    _sync(device)
+    t = time.perf_counter()
+    pipe.plan(*args, **kwargs)
+    _sync(device)
+    return time.perf_counter() - t
+
+
+def phase_pipeline(device, n_docs=N_DOCS, words_per_doc=WORDS_PER_DOC,
+                   vocab=VOCAB, n_restarts=N_RESTARTS, steps=STEPS,
+                   pair_opt=PIPE_PAIR_OPT, profile_steps=PROFILE_STEPS):
+    """Phase 13a: a 3-stage word-count chain through ``GeoPipeline``;
+    returns (measured alphas, out_scales, the end_to_end solver's
+    recorded call, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import GeoJob, GeoPipeline, split_sources
+    from repro_torch.core import (BARRIERS_GGL, Substrate, planetlab_platform,
+                                  uniform_plan)
+    from repro_torch.core import optimize as O
+    from repro_torch.core.plan import validate_plan
+    from repro_torch.kernels.segment_reduce import segment_sum
+    from repro_torch.mapreduce.apps import generate_documents
+
+    print(f"== phase 13a: a {PIPE_STAGES}-stage word-count chain "
+          "(GeoPipeline)", flush=True)
+    base = planetlab_platform(8, alpha=1.0, seed=0)
+    sub = Substrate.of(base)
+    t0 = time.perf_counter()
+    keys, vals = generate_documents(n_docs=n_docs, words_per_doc=words_per_doc,
+                                    vocab=vocab, seed=0)
+    expect = count_chain(vals)
+    sources = split_sources(keys, vals, base.nS)
+    print(f"corpus: {vals.size} words; numpy's chain "
+          f"{[int(k.size) for k, _ in expect]} distinct keys by stage, made "
+          f"in {time.perf_counter() - t0:.3f} s")
+    calls = []
+    app = counting_word_count(device, calls)
+    root = GeoJob(base, app, device=device).calibrate(sources).platform
+
+    def stages(alphas):
+        return [GeoJob(root, app, device=device)] + [
+            GeoJob(sub.view(np.zeros(sub.nS), a, name=f"stage{k + 1}"), app,
+                   device=device)
+            for k, a in enumerate(alphas)]
+
+    def execute(pipe, label):
+        calls.clear()
+        segment_sum.launches = 0
+        t = time.perf_counter()
+        report = pipe.execute(sources)
+        _sync(device)
+        wall = time.perf_counter() - t
+        check_chain(report, expect, label)
+        check(len(calls) and min(calls) >= 1,
+              f"{label}: a non-empty reducer launched segment_sum "
+              f"{min(calls, default=0)} times")
+        launched = segment_sum.launches
+        check(launched == sum(calls), f"{label}: launches outside a reduce")
+        # reducers run stage by stage: split the calls at each stage's
+        # non-empty reducers
+        cuts = np.cumsum([sum(1 for k, _ in job.outputs if k.shape[0])
+                          for job in report.jobs])
+        check(cuts[-1] == len(calls), f"{label}: a reducer was not counted")
+        by_stage = [int(sum(c)) for c in np.split(np.array(calls), cuts[:-1])]
+        return report, wall, (launched, by_stage)
+
+    # the probe: uniform plans, the downstream alphas and out_scales guessed
+    # at 1, measured from the run
+    probe = stages([1.0] * (PIPE_STAGES - 1))
+    for job in probe:
+        job.with_plan(uniform_plan(job.platform), BARRIERS_GGL)
+    rep, wall, _ = execute(GeoPipeline(probe, device=device).with_plans(),
+                           "probe")
+    alphas = [job.stats.alpha_measured for job in rep.jobs]
+    out_scales = [
+        sum(k.shape[0] for k, _ in job.outputs) * app.record_bytes / 1e6
+        / max(float(job.stats.volumes_mb()[3].sum()), 1e-12)
+        for job in rep.jobs]
+    print(f"probe (uniform plans): execute {wall:.3f} s; measured alpha by "
+          f"stage {alphas!r}; out_scale by stage {out_scales!r}")
+
+    pipe = GeoPipeline(stages(alphas[1:]), out_scales=out_scales,
+                       device=device)
+    kw = dict(stage_mode="e2e_multi", barriers=BARRIERS_GGL,
+              n_restarts=n_restarts, steps=steps)
+    results = {}
+    recorded = []
+    real_solve = O._solve_pipeline_batch
+
+    def recording_solve(*args, **kwargs):  # end_to_end's solver inputs
+        recorded.append((args, kwargs))
+        return real_solve(*args, **kwargs)
+
+    for mode in ("stagewise", "end_to_end"):
+        O._solve_pipeline_batch = recording_solve
+        try:
+            wall = timed_plan(pipe, device, mode, **kw)
+        finally:
+            O._solve_pipeline_batch = real_solve
+        for res in pipe.planned.results:
+            validate_plan(res.plan.x, res.plan.y)
+        sim = pipe.simulate()
+        report, exec_wall, launched = execute(pipe, mode)
+        errors = [job.model_error() for job in report.jobs]
+        spans = (report.makespan_modeled, float(sim.makespan_sim),
+                 report.makespan_measured)
+        for name, value in zip(("modeled", "simulated", "measured"), spans):
+            check(np.isfinite(value), f"{mode}: {name} makespan {value}")
+        check(all(np.isfinite(e) for e in errors),
+              f"{mode}: model_error {errors}")
+        results[mode] = (spans, wall, launched[0])
+        print(f"{mode:10s} plan {n_restarts}x{steps} {wall:.3f} s  modeled "
+              f"{spans[0]!r} s  simulated {spans[1]!r} s  measured "
+              f"{spans[2]!r} s  stage model_error {errors!r}  execute "
+              f"{exec_wall:.3f} s  segment_sum launches {launched[0]}, by "
+              f"stage {launched[1]} (reducers "
+              f"{[len(j.outputs) for j in report.jobs]} by stage)")
+    check(results["end_to_end"][0][0] <= results["stagewise"][0][0] + 1e-9,
+          "end_to_end is modeled worse than stagewise")
+    check(len(recorded) == 1, f"{len(recorded)} end_to_end solver calls")
+    warm = timed_plan(pipe, device, "end_to_end", **kw)
+    print(f"end_to_end plan {n_restarts}x{steps}, {PIPE_STAGES} stages: first "
+          f"{results['end_to_end'][1]:.3f} s, warm {warm:.3f} s (each between "
+          "two synchronizations)")
+    args, statics = recorded[0]
+    if device.type == "cuda":  # 50 steps, as phase 4
+        from torch.profiler import ProfilerActivity, profile
+
+        short = dict(statics, steps=profile_steps)
+        O._solve_pipeline_batch(*args, **short)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            O._solve_pipeline_batch(*args, **short)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        busy_us, n_events, _ = device_activity(prof)
+        label = (f"_solve_pipeline_batch profile {n_restarts}x{profile_steps},"
+                 f" {PIPE_STAGES} stages")
+        if n_events:
+            print(f"{label}: wall {wall!r} s  device busy {busy_us / 1e6!r} s"
+                  f"  busy share {busy_us / 1e6 / wall!r}  device events "
+                  f"{n_events} ({n_events / profile_steps!r} per step)")
+        else:
+            print(f"{label}: wall {wall!r} s, device time not measured (the "
+                  "profiler recorded no device activity)")
+    launches = sum(r[2] for r in results.values())
+    phase_pipeline_pair(device, **pair_opt)
+    return alphas, out_scales, recorded[0], launches
+
+
+def pipeline_pair():
+    """The two-node ``pipeline_pair`` substrate of examples/geo_pipeline.py:
+    node 0 hosts the fast reducer behind 4 MB/s exits, node 1 a slow
+    reducer behind fast ones."""
+    import numpy as np
+    from repro_torch.core import Substrate
+
+    return Substrate(
+        B_sm=np.array([[4.0, 4.0], [200.0, 200.0]]),
+        B_mr=np.full((2, 2), 200.0),
+        C_m=np.array([100.0, 100.0]),
+        C_r=np.array([300.0, 60.0]),
+        cluster_s=np.array([0, 1]),
+        cluster_m=np.array([0, 1]),
+        cluster_r=np.array([0, 1]),
+        name="pipeline_pair",
+    )
+
+
+def phase_pipeline_pair(device, n_restarts, steps):
+    """The example's 3-stage chain on ``pipeline_pair``, both modes on the
+    card: end_to_end no worse modeled, at least 20% below stagewise
+    simulated (the example's own asserts)."""
+    import numpy as np
+    from repro_torch.api import GeoJob, GeoPipeline
+    from repro_torch.core import BARRIERS_GGL
+
+    sub = pipeline_pair()
+    reports = {}
+    for mode in ("stagewise", "end_to_end"):
+        stages = [GeoJob(sub.view(np.array([0.0, 6000.0]), 1.0,
+                                  name="ingest")),
+                  GeoJob(sub.view(np.zeros(2), 1.0, name="transform")),
+                  GeoJob(sub.view(np.zeros(2), 0.5, name="aggregate"))]
+        t = time.perf_counter()
+        rep = GeoPipeline(stages, name=f"chain_{mode}", device=device).plan(
+            mode, stage_mode="e2e_multi", barriers=BARRIERS_GGL,
+            n_restarts=n_restarts, steps=steps).simulate()
+        reports[mode] = rep
+        print(f"pipeline_pair {mode:10s} {n_restarts}x{steps}: "
+              f"{time.perf_counter() - t:.3f} s  modeled "
+              f"{rep.makespan_modeled!r} s  simulated "
+              f"{float(rep.makespan_sim)!r} s  reduce split "
+              f"{[[round(float(v), 3) for v in p.y] for p in rep.plans]}")
+    sw, e2e = reports["stagewise"], reports["end_to_end"]
+    gain = 1 - e2e.makespan_sim / sw.makespan_sim
+    check(e2e.makespan_modeled <= sw.makespan_modeled + 1e-9,
+          "pipeline_pair: end_to_end modeled worse than stagewise")
+    check(gain >= 0.20, f"pipeline_pair: simulated gain {gain} below 20%")
+    print(f"pipeline_pair: end_to_end {gain:.1%} below stagewise simulated")
+
+
+def phase_pipeline_schedule(device, jobs, alphas, out_scales,
+                            n_restarts=N_RESTARTS, steps=STEPS,
+                            online_restarts=ONLINE_RESTARTS,
+                            online_steps=ONLINE_STEPS):
+    """Phase 13b: 13a's first two stages on tenant 0's corpus, inside a
+    ``GeoSchedule`` with tenants 1 and 2: planned joint / end_to_end,
+    simulated, refused by ``execute``, then ``run_online`` static and
+    reactive through a 250x drift of the links into the pipeline's
+    stage-1 busiest reducer."""
+    import numpy as np
+    from repro_torch.api import GeoJob, GeoPipeline, GeoSchedule
+    from repro_torch.core import (BARRIERS_GGL, CapacityTrace, SimConfig,
+                                  Substrate)
+    from repro_torch.core.makespan import analytic_volumes
+    from repro_torch.core.plan import validate_plan
+    from repro_torch.mapreduce.apps import word_count
+
+    print("== phase 13b: a pipeline inside a schedule (GeoSchedule)",
+          flush=True)
+    wc = word_count(device=device)
+
+    def members(sub):
+        stage0 = GeoJob(sub.view(jobs[0].platform.D, jobs[0].platform.alpha,
+                                 name="pipe/stage0"), wc, device=device)
+        stage1 = GeoJob(sub.view(np.zeros(sub.nS), alphas[1],
+                                 name="pipe/stage1"), wc, device=device)
+        pipe = GeoPipeline([stage0, stage1], out_scales=out_scales[:2],
+                           name="pipe", device=device)
+        plain = [GeoJob(sub.view(j.platform.D, j.platform.alpha,
+                                 name=j.platform.name), wc, device=device)
+                 for j in jobs[1:3]]
+        return pipe, plain
+
+    sub = Substrate.of(jobs[0].platform)
+    pipe, plain = members(sub)
+    sched = GeoSchedule([pipe] + plain, device=device)
+    _sync(device)
+    t = time.perf_counter()
+    sched.plan("joint", barriers=BARRIERS_GGL, pipeline_mode="end_to_end",
+               n_restarts=n_restarts, steps=steps)
+    _sync(device)
+    wall = time.perf_counter() - t
+    for job in sched.jobs:
+        validate_plan(job.planned.plan.x, job.planned.plan.y)
+    cfg = SimConfig(barriers=BARRIERS_GGL)
+    frozen = sched.simulate(cfg)
+    frozen_s = float(frozen.makespan_sim)
+    check(np.isfinite(frozen_s), f"13b: frozen makespan {frozen_s}")
+    print(f"joint + end_to_end plan {n_restarts}x{steps}, flat stack of "
+          f"{len(sched.jobs)} (links {sched._links}): {wall:.3f} s  modeled "
+          f"{sched.planned.makespan!r} s  simulated {frozen_s!r} s"
+          f"  per job modeled {[r.makespan for r in sched.planned.results]!r}")
+    try:
+        sched.execute([[]] * len(sched.jobs))
+    except RuntimeError as err:
+        check("GeoPipeline.execute" in str(err), f"13b: execute said {err}")
+    else:
+        fail("13b: execute ran a schedule holding a pipeline")
+    print("execute refused: the schedule holds a pipeline")
+
+    t = time.perf_counter()
+    static = sched.run_online(policy="static", cfg=cfg)
+    static_wall = time.perf_counter() - t
+    check(abs(static.makespan_online - frozen_s) <= 1e-9
+          and abs(static.makespan_static - frozen_s) <= 1e-9,
+          f"13b: static {static.makespan_online} differs from the frozen "
+          f"{frozen_s}")
+    print(f"static: wall {static_wall:.3f} s  online "
+          f"{float(static.makespan_online)!r} s = frozen")
+
+    # the drift: the two links carrying most of stage 1's shuffle into its
+    # busiest reducer step down 250x at half the frozen makespan
+    plans = sched.planned.plans
+    s1 = sched.jobs[1]
+    v = analytic_volumes(s1.platform.D, plans[1].x, plans[1].y,
+                         s1.platform.alpha, xp=np)[2]
+    busiest = int(np.argmax(v.sum(axis=0)))
+    links = [int(m) for m in np.argsort(v[:, busiest])[::-1][:2]]
+    t_drift = 0.5 * frozen_s
+    traced = sub.with_traces({
+        f"shuffle[m{m}->r{busiest}]": CapacityTrace.step(
+            float(sub.B_mr[m, busiest]), float(sub.B_mr[m, busiest]) / 250.0,
+            t_drift)
+        for m in links})
+    tpipe, tplain = members(traced)
+    for job, plan in zip(tpipe.stages + tplain, plans):
+        job.with_plan(plan, BARRIERS_GGL)
+    tpipe.with_plans()
+    tsched = GeoSchedule([tpipe] + tplain, device=device).with_plans()
+    release = float(frozen.sims[0].reduce_end)
+    print(f"shuffle links m{links}->r{busiest} (the pipeline's stage-1 "
+          f"busiest reducer) step down 250x at {t_drift!r} s; stage 1 "
+          f"(job 1) is fed until stage 0's reduce ends at {release!r} s "
+          "in the frozen run")
+    t = time.perf_counter()
+    report = tsched.run_online(policy="reactive", cfg=cfg,
+                               n_restarts=online_restarts, steps=online_steps)
+    online_wall = time.perf_counter() - t
+    for value in (report.makespan_online, report.makespan_static):
+        check(np.isfinite(value), f"13b reactive: makespan {value}")
+    for plan in report.plans:
+        validate_plan(plan.x, plan.y)
+    waiting = [d for d in report.decisions if d.job == 1 and d.time < release]
+    print(f"reactive: wall {online_wall:.3f} s  online "
+          f"{float(report.makespan_online)!r} s  static "
+          f"{float(report.makespan_static)!r} s"
+          f"  decisions {len(report.decisions)}  swaps {len(report.swaps)}  "
+          f"rejects {len(report.rejected)}  charged {report.charged_s!r} s  "
+          f"decisions on stage 1 before its upstream reduce ended "
+          f"{len(waiting)}")
+    print(report.timeline())
+    for d in report.swaps:
+        print(f"  swap: t={float(d.time)!r} job {d.job} remaining "
+              f"{float(d.modeled_before)!r} -> {float(d.modeled_after)!r} s")
+
+
+def phase_pipeline_card_vs_cpu(device, recorded, steps=25):
+    """Phase 13c: ``_solve_pipeline_batch`` for ``steps`` steps from the
+    inputs 13a's end_to_end path built, on the card and on the CPU.  The
+    float64 trajectories are held to the solver bar; the float32 ones are
+    printed with their distance from the float64 one (at these inputs the
+    reference's own float32 trajectory is further than the bar from it:
+    tests/test_torch_pipeline.py)."""
+    import torch
+    from repro_torch.core import optimize as O
+
+    print("== phase 13c: the pipeline solver on the card against the CPU",
+          flush=True)
+    args, statics = recorded
+    cpu = torch.device("cpu")
+
+    def solve(dev, dtype, n=steps, inputs=args):
+        moved = [tuple(a.to(dev, dtype) for a in arg) if isinstance(arg, tuple)
+                 else arg.to(dev, dtype) for arg in inputs]
+        return [t.cpu() for t in O._solve_pipeline_batch(
+            *moved, **dict(statics, steps=n))]
+
+    def dist(a, b):
+        return ((a[0] - b[0]).abs().max().item(),
+                (a[1] - b[1]).abs().max().item(),
+                ((a[2] - b[2]).abs() / b[2].abs()).max().item())
+
+    card64, cpu64 = solve(device, torch.float64), solve(cpu, torch.float64)
+    errs = (_held("_solve_pipeline_batch float64 x", card64[0], cpu64[0],
+                  1e-4),
+            _held("_solve_pipeline_batch float64 y", card64[1], cpu64[1],
+                  1e-4),
+            _held("_solve_pipeline_batch float64 exact", card64[2], cpu64[2],
+                  0.0, 1e-4))
+    print(f"_solve_pipeline_batch {steps} steps in float64 from the inputs of "
+          f"13a's end_to_end path (temperature unit {float(args[6])!r} s, "
+          f"the stagewise stack's price), card against CPU: max |err| x "
+          f"{errs[0]!r}, y {errs[1]!r}, exact {errs[2]!r} s (x, y atol 1e-4;"
+          " exact rtol 1e-4)")
+    card32, cpu32 = solve(device, torch.float32), solve(cpu, torch.float32)
+    print(f"unchecked: in float32, as the path runs it, max |err| x, y, exact "
+          f"relative: card against CPU {dist(card32, cpu32)!r}; card against "
+          f"the float64 CPU run {dist(card32, cpu64)!r}; CPU against it "
+          f"{dist(cpu32, cpu64)!r}")
+    # the CPU's float32 run with every logit one ulp up or down (seeded
+    # choices): how far rounding alone moves these trajectories
+    lx = args[4].cpu()
+    for seed in range(ULP_SEEDS):
+        gen = torch.Generator().manual_seed(seed)
+        up = torch.rand(lx.shape, generator=gen) < 0.5
+        nudged = list(args)
+        nudged[4] = torch.nextafter(lx, torch.where(up, torch.inf, -torch.inf))
+        print(f"unchecked: the CPU's float32 run with each logit moved one ulp"
+              f" (seed {seed}) against the CPU's: "
+              f"{dist(solve(cpu, torch.float32, inputs=nudged), cpu32)!r}")
+    long = 4 * steps
+    far = dist(solve(device, torch.float32, long),
+               solve(cpu, torch.float32, long))
+    print(f"unchecked: {long} steps in float32, card against CPU: {far!r}")
+
+
 def free_device_memory(device) -> None:
     """Return what the finished phases held to the card."""
     import gc
@@ -2869,10 +3340,16 @@ def main() -> None:
     jobs, joint, schedule_launches = phase_schedule(device)
     online = phase_online(device, jobs, joint)
     phase_card_vs_cpu(device, jobs, joint, *online)
+    t13 = time.perf_counter()
+    alphas, out_scales, recorded, pipeline_launches = phase_pipeline(device)
+    phase_pipeline_schedule(device, jobs, alphas, out_scales)
+    phase_pipeline_card_vs_cpu(device, recorded)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s")
     segsum = entries[0]
     segsum["launches_by_path"] = {"GeoJob": segsum["launches"],
-                                  "GeoSchedule": schedule_launches}
-    segsum["launches"] += schedule_launches
+                                  "GeoSchedule": schedule_launches,
+                                  "GeoPipeline": pipeline_launches}
+    segsum["launches"] += schedule_launches + pipeline_launches
     flash = next(e for e in entries if e["name"] == "flash_attention")
     flash["launches_by_path"] = {SERVE_ARCH: flash["launches"],
                                  GRANITE_ARCH: granite["flash_attention"]}

@@ -1,6 +1,6 @@
 """`GeoJob` — the planning/execution facade, on the port.
 
-The single-job slice of :mod:`repro.api`: model a platform, optimize a
+:mod:`repro.api` on the port: model a platform, optimize a
 plan, execute (or simulate) it, and compare modeled against measured
 timings, all priced by one shared cost model
 (:class:`repro_torch.core.makespan.CostModel`):
@@ -44,7 +44,15 @@ jobs streaming in after t=0 and capacities drifting mid-run:
     print(report.summary())               # online vs frozen-plan makespan
     print(report.timeline())              # the per-decision audit trail
 
-Pipelines (:class:`repro.api.GeoPipeline`) are not ported yet.
+Multi-stage pipelines lift it across *stages* — :class:`GeoPipeline` plans
+a DAG of jobs where each stage consumes its upstream stages' reduce output
+(``stagewise`` / ``end_to_end``), and a pipeline may be a member of a
+:class:`GeoSchedule`:
+
+    pipe = GeoPipeline([GeoJob(sub.view(D, 1.0), app),
+                        GeoJob(sub.view(np.zeros(sub.nS), 1.0), app)],
+                       device="cuda")
+    print(pipe.plan("end_to_end").simulate().summary())
 """
 from __future__ import annotations
 
@@ -60,13 +68,16 @@ from .core.fluid import fluid_score_residual
 from .core.makespan import BARRIERS_GGL, CostModel, attribute_phases
 from .core.optimize import (
     OnlineConfig,
+    PipelinePlanResult,
     PlanResult,
     SchedulePlanResult,
     SolveTimeEMA,
+    _pipeline_result,
     _shared_schedule_result,
     available_modes,
     get_online_config,
     get_online_policy,
+    optimize_pipeline,
     optimize_plan,
     optimize_schedule,
     replan,
@@ -75,6 +86,7 @@ from .core.optimize import (
     solver_cache_stats,
     swap_charge,
 )
+from .core.pipeline import PipelineSpec, StageSpec
 from .core.plan import ExecutionPlan, uniform_plan
 from .core.platform import Platform, Substrate
 from .core.simulate import (
@@ -88,8 +100,9 @@ from .core.simulate import (
 )
 from .mapreduce.engine import GeoMapReduce, MRApp, PhaseStats, Records
 
-__all__ = ["Arrival", "Decision", "GeoJob", "GeoSchedule", "JobReport",
-           "OnlineConfig", "OnlineReport", "ScheduleReport", "split_sources"]
+__all__ = ["Arrival", "Decision", "GeoJob", "GeoPipeline", "GeoSchedule",
+           "JobReport", "OnlineConfig", "OnlineReport", "PipelineReport",
+           "ScheduleReport", "split_sources"]
 
 
 def split_sources(keys: np.ndarray, values: np.ndarray, n_sources: int) -> List[Records]:
@@ -297,6 +310,355 @@ class GeoJob:
         elif cfg_kwargs:
             raise TypeError("pass either cfg or keyword overrides, not both")
         return simulate(self.platform, result.plan, cfg)
+
+
+# ---------------------------------------------------------------------------
+# multi-stage pipelines
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineReport:
+    """The outcome of one planned pipeline: per-stage plans priced end to
+    end through the shared cost model, the discrete-event execution with
+    real inter-stage release gating (:meth:`GeoPipeline.simulate`), and —
+    after :meth:`GeoPipeline.execute` — per-stage application runs with
+    measured byte movement chained stage to stage."""
+
+    result: PipelinePlanResult
+    barriers: Tuple[str, str, str]
+    #: the concurrent stage execution (simulate()/execute() paths)
+    sim: Optional[ScheduleSimResult] = None
+    #: per-stage application reports (only from execute())
+    jobs: Optional[Tuple[JobReport, ...]] = None
+    #: measured per-stage timings composed along the DAG (only execute())
+    measured: Optional[Dict[str, object]] = None
+
+    @property
+    def plans(self) -> Tuple[ExecutionPlan, ...]:
+        return self.result.plans
+
+    @property
+    def sims(self) -> Optional[Tuple[SimResult, ...]]:
+        """Per-stage discrete-event results."""
+        return tuple(self.sim.jobs) if self.sim is not None else None
+
+    @property
+    def makespan_modeled(self) -> float:
+        """Modeled end-to-end makespan along the DAG's critical path."""
+        return self.result.makespan
+
+    @property
+    def makespan_sim(self) -> Optional[float]:
+        """Simulated end-to-end makespan (absolute finish of the last
+        stage, inter-stage gating included)."""
+        return self.sim.makespan if self.sim is not None else None
+
+    @property
+    def makespan_measured(self) -> Optional[float]:
+        """Measured end-to-end makespan (execute() path), else ``None``."""
+        if self.measured is None:
+            return None
+        return float(self.measured["makespan"])
+
+    def as_dict(self) -> Dict[str, object]:
+        """Stable, JSON-round-trippable form: modeled per-stage spans and
+        DAG composition, plus the simulated/measured sides when present."""
+        out: Dict[str, object] = {
+            "mode": self.result.mode,
+            "barriers": "".join(self.barriers),
+            "makespan": self.result.makespan,
+            "stages": [
+                {"makespan": r.makespan, **{k: float(v) for k, v
+                                            in r.breakdown.items()}}
+                for r in self.result.results
+            ],
+            "start": [float(t) for t in self.result.starts],
+            "finish": [float(t) for t in self.result.finishes],
+        }
+        if self.sim is not None:
+            out["simulated"] = self.sim.as_dict()
+        if self.measured is not None:
+            out["measured"] = self.measured
+        return out
+
+    def summary(self) -> str:
+        extra = ""
+        if self.makespan_sim is not None:
+            extra += f" simulated={self.makespan_sim:.1f}s"
+        if self.makespan_measured is not None:
+            extra += f" measured={self.makespan_measured:.1f}s"
+        stages = " ".join(
+            f"{r.makespan:.0f}s" for r in self.result.results
+        )
+        return (
+            f"pipeline[{self.result.mode}/{''.join(self.barriers)}] "
+            f"{len(self.result.results)} stages "
+            f"modeled={self.makespan_modeled:.1f}s{extra}  [{stages}]"
+        )
+
+
+class GeoPipeline:
+    """A DAG of MapReduce stages where each downstream stage consumes its
+    upstream stages' reduce output — the paper's end-to-end-beats-myopic
+    argument lifted across *stages*.
+
+    ``stages`` are per-stage :class:`GeoJob`\\ s on one shared substrate;
+    only root stages' ``D`` is authoritative (a downstream stage's source
+    vector is derived from its upstream reducers' placement).  ``edges``
+    is a list of ``(upstream, downstream)`` stage-index pairs, defaulting
+    to the linear chain; ``out_scales[k]`` is stage ``k``'s reduce-output
+    MB per reduce-input MB.
+
+    The facade mirrors :class:`GeoJob`:
+    ``GeoPipeline(stages).plan(mode=...).simulate()`` — ``mode`` is any
+    registered pipeline planner (``stagewise`` / ``end_to_end`` built in),
+    ``stage_mode`` the per-stage planner it builds on.  Planning adopts
+    each stage's shared-priced :class:`PlanResult` (and its derived-``D``
+    platform view) into the stage job, so stages remain usable job facades
+    afterwards.  A pipeline can be scheduled alongside plain jobs inside
+    :class:`GeoSchedule` — including :meth:`GeoSchedule.run_online`, whose
+    snapshot/swap machinery steers the not-yet-started stages of a live
+    pipeline.  Every solve of the pipeline runs on ``device`` (default: the
+    process default, the card); each stage's application keeps its own."""
+
+    def __init__(
+        self,
+        stages: Sequence[GeoJob],
+        edges: Optional[Sequence[Tuple[int, int]]] = None,
+        out_scales: Optional[Sequence[float]] = None,
+        name: str = "pipeline",
+        *,
+        device: Optional[DeviceLike] = None,
+    ):
+        if not stages:
+            raise ValueError("GeoPipeline needs at least one stage")
+        self.stages = list(stages)
+        self.name = name
+        self.device = device
+        n = len(self.stages)
+        if edges is None:
+            edges = [(k - 1, k) for k in range(1, n)]
+        if out_scales is None:
+            out_scales = [1.0] * n
+        if len(out_scales) != n:
+            raise ValueError("one out_scale per stage")
+        deps: List[List[int]] = [[] for _ in range(n)]
+        for u, v in edges:
+            u, v = int(u), int(v)
+            if not (0 <= u < n and 0 <= v < n):
+                raise ValueError(f"edge ({u}, {v}) references unknown stages")
+            deps[v].append(u)
+        #: the validated stage DAG (cycles rejected here, at construction)
+        self.spec = PipelineSpec(stages=tuple(
+            StageSpec(
+                platform=job.platform,
+                deps=tuple(deps[k]),
+                out_scale=float(out_scales[k]),
+                name=f"{name}/stage{k}",
+            )
+            for k, job in enumerate(self.stages)
+        ))
+        self.substrate = self.spec.substrate
+        self._result: Optional[PipelinePlanResult] = None
+
+    def __repr__(self):
+        planned = repr(self._result) if self._result is not None \
+            else "unplanned"
+        return (
+            f"GeoPipeline({self.name}: {len(self.stages)} stages on "
+            f"{self.substrate.name}, {planned})"
+        )
+
+    def stage_links(self) -> Dict[int, List[Tuple[int, float]]]:
+        """Executor stage-linkage: ``{stage: [(upstream, out_scale), ...]}``
+        (the upstream's own out_scale — what its reducers emit)."""
+        return {
+            k: [(u, self.spec.stages[u].out_scale) for u in stage.deps]
+            for k, stage in enumerate(self.spec.stages)
+            if stage.deps
+        }
+
+    # -- planning ------------------------------------------------------------
+    def plan(
+        self,
+        mode: str = "end_to_end",
+        stage_mode: str = "e2e_multi",
+        barriers: Tuple[str, str, str] = BARRIERS_GGL,
+        **solver_kwargs,
+    ) -> "GeoPipeline":
+        """Plan all stages with any registered pipeline planner
+        (``stagewise`` — the per-stage-myopic baseline — or ``end_to_end``
+        — one solve over all stages with gradients through the inter-stage
+        coupling; see
+        :func:`repro_torch.core.optimize.available_pipeline_modes`).  Extra
+        keyword arguments (``n_restarts``, ``steps``, ``seed``, ``device``)
+        reach :func:`repro_torch.core.optimize.optimize_pipeline`, which
+        solves on the pipeline's device unless ``device`` overrides it."""
+        solver_kwargs.setdefault("device", self.device)
+        self._result = optimize_pipeline(
+            self.spec, mode=mode, stage_mode=stage_mode,
+            barriers=tuple(barriers), **solver_kwargs,
+        )
+        self._adopt(self._result)
+        return self
+
+    def with_plans(self) -> "GeoPipeline":
+        """Adopt every stage's existing plan (set via :meth:`GeoJob.plan`
+        or :meth:`GeoJob.with_plan`) as the pipeline plan, re-priced end to
+        end — the pipeline analogue of :meth:`GeoJob.with_plan` for
+        baselines and replays."""
+        barriers = self.stages[0].planned.barriers
+        for job in self.stages[1:]:
+            if job.planned.barriers != barriers:
+                raise ValueError(
+                    "with_plans() needs every stage planned under the same "
+                    f"barriers, got {job.planned.barriers} vs {barriers}"
+                )
+        plans = [job.planned.plan for job in self.stages]
+        res = _pipeline_result(
+            self.spec, plans, barriers, "external", "external", 0.0
+        )
+        self._result = dataclasses.replace(res, objective=res.makespan)
+        self._adopt(self._result)
+        return self
+
+    def _adopt(self, result: PipelinePlanResult) -> None:
+        """Give every stage job its derived-``D`` platform view and its
+        end-to-end-priced :class:`PlanResult` (each job keeps its own
+        ``device``)."""
+        for job, platform, res in zip(
+            self.stages, self.spec.stage_platforms(result.plans),
+            result.results,
+        ):
+            job.platform = platform
+            job._result = res
+
+    @property
+    def planned(self) -> PipelinePlanResult:
+        if self._result is None:
+            raise RuntimeError(
+                "pipeline has no plan yet — call .plan(mode=...) or "
+                ".with_plans() first"
+            )
+        return self._result
+
+    # -- execution -----------------------------------------------------------
+    def _stage_cfgs(self, cfg, cfg_kwargs) -> List[SimConfig]:
+        result = self.planned
+        if cfg is None:
+            cfg_kwargs.setdefault("barriers", result.barriers)
+            cfg = SimConfig(**cfg_kwargs)
+        elif cfg_kwargs:
+            raise TypeError("pass either cfg or keyword overrides, not both")
+        cfgs = [cfg] * len(self.stages) if isinstance(cfg, SimConfig) \
+            else list(cfg)
+        if len(cfgs) != len(self.stages):
+            raise ValueError("one SimConfig per stage (or a single shared one)")
+        return cfgs
+
+    def simulate(self, cfg=None, **cfg_kwargs) -> PipelineReport:
+        """Execute the planned pipeline on the chunk-granular executor:
+        all stages run through the shared resource engine, and a downstream
+        stage's push chunks at source ``s`` release only when the upstream
+        reduce output destined for ``s`` lands (real inter-stage gating,
+        real contention between overlapping stages)."""
+        result = self.planned
+        cfgs = self._stage_cfgs(cfg, cfg_kwargs)
+        entries = [
+            (job.platform, res.plan, c)
+            for job, res, c in zip(self.stages, result.results, cfgs)
+        ]
+        sim = simulate_schedule(entries, substrate=self.substrate,
+                                stage_links=self.stage_links())
+        return PipelineReport(result=result, barriers=result.barriers,
+                              sim=sim)
+
+    def execute(self, per_source) -> PipelineReport:
+        """Run every stage's application, chaining real records: a
+        downstream stage's source ``s`` consumes the concatenated reducer-
+        ``s`` outputs of its upstream stages.  ``per_source`` is the root
+        stage's per-source record sets (or ``{stage_idx: record_sets}``
+        when the DAG has several roots).  Measured per-stage byte movement
+        is priced through the identical cost model and composed along the
+        same critical path as the modeled side."""
+        result = self.planned
+        roots = [k for k, s in enumerate(self.spec.stages) if not s.deps]
+        if isinstance(per_source, dict):
+            root_sources = {int(k): v for k, v in per_source.items()}
+        elif len(roots) == 1:
+            root_sources = {roots[0]: per_source}
+        else:
+            raise ValueError(
+                f"pipeline has {len(roots)} root stages — pass "
+                "per_source as {stage_idx: record_sets}"
+            )
+        if set(root_sources) != set(roots):
+            raise ValueError(
+                f"per_source covers stages {sorted(root_sources)} but the "
+                f"roots are {roots}"
+            )
+        for job in self.stages:
+            if job.app is None:
+                raise RuntimeError(
+                    "execute() needs every stage to carry an application — "
+                    "use .simulate() for a model-only run"
+                )
+        n = len(self.stages)
+        outputs: List[Optional[List[Records]]] = [None] * n
+        reports: List[Optional[JobReport]] = [None] * n
+        stage_measured: List[Optional[Dict[str, float]]] = [None] * n
+        for k in self.spec.topo_order():
+            stage, job, res = self.spec.stages[k], self.stages[k], \
+                result.results[k]
+            if stage.deps:
+                srcs = [
+                    (
+                        np.concatenate([outputs[u][s][0]
+                                        for u in stage.deps]),
+                        np.concatenate([outputs[u][s][1]
+                                        for u in stage.deps]),
+                    )
+                    for s in range(job.platform.nS)
+                ]
+            else:
+                srcs = root_sources[k]
+            engine = GeoMapReduce(
+                job.platform, res.plan, job.app, n_buckets=job.n_buckets
+            )
+            outs, stats = engine.run(srcs)
+            outputs[k] = outs
+            cm = CostModel(job.platform, result.barriers)
+            measured = cm.breakdown_volumes(*stats.volumes_mb())
+            stage_measured[k] = measured
+            reports[k] = JobReport(
+                result=res, stats=stats, modeled=res.breakdown,
+                measured=measured, outputs=outs, barriers=result.barriers,
+            )
+        # compose the measured stage spans along the same critical path
+        start = [0.0] * n
+        finish = [0.0] * n
+        for k in self.spec.topo_order():
+            start[k] = max(
+                (finish[u] for u in self.spec.stages[k].deps), default=0.0
+            )
+            finish[k] = start[k] + stage_measured[k]["makespan"]
+        measured_doc: Dict[str, object] = {
+            "stages": [dict(m) for m in stage_measured],
+            "start": start,
+            "finish": finish,
+            "makespan": max(finish),
+        }
+        cfgs = self._stage_cfgs(None, {})
+        sim = simulate_schedule(
+            [(job.platform, res.plan, c)
+             for job, res, c in zip(self.stages, result.results, cfgs)],
+            substrate=self.substrate, stage_links=self.stage_links(),
+        )
+        return PipelineReport(
+            result=result, barriers=result.barriers, sim=sim,
+            jobs=tuple(reports), measured=measured_doc,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -570,7 +932,9 @@ class GeoSchedule:
     when every job carries an application).  All job platforms must be
     views of the same substrate (:meth:`Substrate.view`); planning adopts
     each per-job plan into its :class:`GeoJob`, so individual jobs remain
-    usable facades afterwards.  Every solve of the schedule — its plan and
+    usable facades afterwards.  A member may also be a
+    :class:`GeoPipeline`: its stages join the flat job list, linked stage
+    to stage in the executor.  Every solve of the schedule — its plan and
     each re-plan of :meth:`run_online` — runs on ``device`` (default: the
     process default, the card).
     """
@@ -579,18 +943,29 @@ class GeoSchedule:
                  device: Optional[DeviceLike] = None):
         if not jobs:
             raise ValueError("GeoSchedule needs at least one job")
-        for member in jobs:
-            if not isinstance(member, GeoJob):
-                raise TypeError(
-                    f"GeoSchedule members must be GeoJobs, got "
-                    f"{type(member).__name__}: pipeline members "
-                    "(GeoPipeline) are not ported yet (ROADMAP.md, queue "
-                    "1 item 4)"
-                )
-        #: the jobs the engine runs, in order
-        self.jobs: List[GeoJob] = list(jobs)
-        #: executor stage links of pipeline members (none yet)
+        #: the user's members (GeoJob or GeoPipeline), in order
+        self.members = list(jobs)
+        #: the flat job list the engine runs — pipelines contribute their
+        #: stage jobs, linked through ``_links``
+        self.jobs: List[GeoJob] = []
         self._links: Dict[int, List[Tuple[int, float]]] = {}
+        self._pipelines: List[Tuple[GeoPipeline, int]] = []
+        for member in self.members:
+            if isinstance(member, GeoPipeline):
+                base = len(self.jobs)
+                self._pipelines.append((member, base))
+                self.jobs.extend(member.stages)
+                for child, parents in member.stage_links().items():
+                    self._links[base + child] = [
+                        (base + p, s) for p, s in parents
+                    ]
+            elif isinstance(member, GeoJob):
+                self.jobs.append(member)
+            else:
+                raise TypeError(
+                    "GeoSchedule members must be GeoJob or GeoPipeline, "
+                    f"got {type(member).__name__}"
+                )
         self.device = device
         self.substrate = Substrate.of(self.jobs[0].platform)
         for job in self.jobs[1:]:
@@ -611,6 +986,7 @@ class GeoSchedule:
         policy: str = "joint",
         mode: str = "e2e_multi",
         barriers: Tuple[str, str, str] = BARRIERS_GGL,
+        pipeline_mode: str = "end_to_end",
         **solver_kwargs,
     ) -> "GeoSchedule":
         """Plan all jobs together with any registered schedule policy
@@ -620,12 +996,51 @@ class GeoSchedule:
         (``n_restarts``, ``steps``, ``seed``, ``objective``, ``device``)
         reach :func:`repro_torch.core.optimize.optimize_schedule`, which
         solves on the schedule's device unless ``device`` overrides it.
-        Each job adopts its shared-priced :class:`PlanResult`."""
+        Each job adopts its shared-priced :class:`PlanResult`.
+
+        :class:`GeoPipeline` members are planned with ``pipeline_mode``
+        (cross-stage, per pipeline — stage ``mode`` underneath, on the
+        same device); plain jobs go through the schedule ``policy``, and
+        the whole flat stack (stages included, on their derived-``D``
+        views) is re-priced under shared capacity."""
+        barriers = tuple(barriers)
         solver_kwargs.setdefault("device", self.device)
-        self._result = optimize_schedule(
+        if not self._pipelines:
+            self._result = optimize_schedule(
+                [job.platform for job in self.jobs],
+                policy=policy, mode=mode, barriers=barriers,
+                **solver_kwargs,
+            )
+            for job, res in zip(self.jobs, self._result.results):
+                job._result = res
+            return self
+        # only the generic solver knobs reach the pipeline planner —
+        # schedule-level kwargs (e.g. objective=) stay with the policy
+        pipe_kwargs = {
+            k: v for k, v in solver_kwargs.items()
+            if k in ("n_restarts", "steps", "seed", "device")
+        }
+        for pipe, _ in self._pipelines:
+            pipe.plan(mode=pipeline_mode, stage_mode=mode,
+                      barriers=barriers, **pipe_kwargs)
+        staged = {
+            base + k
+            for pipe, base in self._pipelines
+            for k in range(len(pipe.stages))
+        }
+        plain = [i for i in range(len(self.jobs)) if i not in staged]
+        if plain:
+            sub_result = optimize_schedule(
+                [self.jobs[i].platform for i in plain],
+                policy=policy, mode=mode, barriers=barriers,
+                **solver_kwargs,
+            )
+            for i, res in zip(plain, sub_result.results):
+                self.jobs[i]._result = res
+        self._result = _shared_schedule_result(
             [job.platform for job in self.jobs],
-            policy=policy, mode=mode, barriers=tuple(barriers),
-            **solver_kwargs,
+            [job.planned.plan for job in self.jobs],
+            barriers, policy=policy, mode=mode,
         )
         for job, res in zip(self.jobs, self._result.results):
             job._result = res

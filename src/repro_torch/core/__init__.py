@@ -1,5 +1,4 @@
-"""GeoPlan core on torch — :mod:`repro.core` without pipelines and the
-scale tier.
+"""GeoPlan core on torch — :mod:`repro.core` with every public name.
 
 * :mod:`repro_torch.core.platform` — tripartite platform model (§2.1),
   shared substrates, capacity traces and failures.
@@ -16,6 +15,13 @@ scale tier.
   online control).
 * :mod:`repro_torch.core.fluid` — flow-level executor and the fluid
   pricing of online control.
+* :mod:`repro_torch.core.pipeline` — multi-stage pipelines: the stage DAG
+  and its cross-stage coupling (a copy of the reference's); the
+  ``stagewise`` / ``end_to_end`` planners live in
+  :mod:`repro_torch.core.optimize`.
+* :mod:`repro_torch.core.topology` — 3-tier edge→region→backbone substrate
+  and job-mix generators for the 10²–10³-node scale tiers (a copy of the
+  reference's).
 """
 from .fluid import FluidSim
 from .makespan import (
@@ -34,6 +40,7 @@ from .optimize import (
     MODES,
     SCHEDULE_OBJECTIVES,
     OnlineConfig,
+    PipelinePlanResult,
     PlanResult,
     SchedulePlanResult,
     ScheduleReplanResult,
@@ -41,16 +48,20 @@ from .optimize import (
     SolverService,
     available_modes,
     available_online_policies,
+    available_pipeline_modes,
     available_policies,
     brute_force_plan,
     get_online_config,
     get_online_policy,
+    get_pipeline_planner,
     get_planner,
     get_schedule_planner,
+    optimize_pipeline,
     optimize_plan,
     optimize_plan_batch,
     optimize_schedule,
     register_online_policy,
+    register_pipeline_planner,
     register_planner,
     register_schedule_planner,
     replan,
@@ -62,6 +73,7 @@ from .optimize import (
     solver_cache_stats,
     swap_charge,
 )
+from .pipeline import PipelineSpec, StageSpec, chain_spec
 from .plan import ExecutionPlan, local_push_plan, uniform_plan
 from .platform import (
     CapacityTrace,
@@ -83,6 +95,7 @@ from .simulate import (
     simulate,
     simulate_schedule,
 )
+from .topology import scale_job_mix, scale_tier_substrate
 
 __all__ = [
     "BARRIERS_ALL_GLOBAL",
@@ -97,10 +110,13 @@ __all__ = [
     "JobProgress",
     "MODES",
     "OnlineConfig",
+    "PipelinePlanResult",
+    "PipelineSpec",
     "Platform",
     "PlanResult",
     "ProgressSnapshot",
     "ResourceStats",
+    "StageSpec",
     "SCHEDULE_OBJECTIVES",
     "SchedulePlanResult",
     "ScheduleReplanResult",
@@ -112,22 +128,27 @@ __all__ = [
     "Substrate",
     "available_modes",
     "available_online_policies",
+    "available_pipeline_modes",
     "available_policies",
     "brute_force_plan",
+    "chain_spec",
     "get_online_config",
     "get_online_policy",
+    "get_pipeline_planner",
     "get_planner",
     "get_schedule_planner",
     "local_push_plan",
     "makespan",
     "makespan_model",
     "open_schedule",
+    "optimize_pipeline",
     "optimize_plan",
     "optimize_plan_batch",
     "optimize_schedule",
     "phase_breakdown",
     "planetlab_platform",
     "register_online_policy",
+    "register_pipeline_planner",
     "register_planner",
     "register_schedule_planner",
     "replan",
@@ -135,6 +156,8 @@ __all__ = [
     "replan_schedule",
     "reset_solver_cache_stats",
     "residual_volumes",
+    "scale_job_mix",
+    "scale_tier_substrate",
     "score_residual_shared",
     "shared_effective_volumes",
     "simulate",

@@ -1,8 +1,9 @@
 """Model-driven execution-plan optimization (paper §2.3 and §4), on torch.
 
-This is :mod:`repro.core.optimize` without its pipeline planners, ported
-from jit-compiled jnp to batched torch: single-job planning, multi-job
-schedules on a shared substrate, and online re-planning of running jobs.  The paper's *model* is kept exactly
+This is :mod:`repro.core.optimize`, ported from jit-compiled jnp to
+batched torch: single-job planning, multi-job schedules on a shared
+substrate, online re-planning of running jobs, and multi-stage pipelines.
+The paper's *model* is kept exactly
 (Equations 1–14); the *solver* is the reference's:
 
 * validity (Equations 1–3) holds **by construction** — plans are parametrized
@@ -44,9 +45,11 @@ the solve runs on.
 
 Multi-job schedule policies (``independent`` / ``sequential`` / ``joint``)
 plug in through :func:`register_schedule_planner` and online re-planning
-policies through :func:`register_online_policy`.  The joint and residual
-solvers share :func:`_adam_anneal` with the single-job solver: a solver
-over one stacked problem gets a request axis of one.  Every candidate they
+policies through :func:`register_online_policy`, pipeline planners
+(``stagewise`` / ``end_to_end``) through :func:`register_pipeline_planner`.
+The joint, residual and pipeline solvers share :func:`_adam_anneal` with
+the single-job solver: a solver over one stacked problem gets a request
+axis of one.  Every candidate they
 return is re-priced in float64 numpy, and the incumbent competes, so the
 selection never depends on float32.
 """
@@ -80,6 +83,7 @@ from .makespan import (
     smooth_ops,
     volume_model,
 )
+from .pipeline import PipelineSpec
 from .plan import ExecutionPlan, local_push_plan, uniform_plan
 from .platform import Platform, Substrate
 
@@ -87,21 +91,26 @@ __all__ = [
     "MODES",
     "SCHEDULE_OBJECTIVES",
     "OnlineConfig",
+    "PipelinePlanResult",
     "PlanResult",
     "SchedulePlanResult",
     "ScheduleReplanResult",
     "available_modes",
     "available_online_policies",
+    "available_pipeline_modes",
     "available_policies",
     "brute_force_plan",
     "get_online_config",
     "get_online_policy",
+    "get_pipeline_planner",
     "get_planner",
     "get_schedule_planner",
+    "optimize_pipeline",
     "optimize_plan",
     "optimize_plan_batch",
     "optimize_schedule",
     "register_online_policy",
+    "register_pipeline_planner",
     "register_planner",
     "register_schedule_planner",
     "replan",
@@ -2249,6 +2258,337 @@ def _reactive_failover_policy(kind, snapshot):
     resources (capacity collapsed until repair via
     :meth:`Substrate.at`)."""
     return kind in ("arrival", "failure", "drift")
+
+
+# ---------------------------------------------------------------------------
+# multi-stage pipelines: stagewise vs end-to-end cross-stage planning
+# ---------------------------------------------------------------------------
+
+#: name -> fn(spec, barriers, *, stage_mode, n_restarts, steps, seed, device)
+#:         -> [ExecutionPlan, ...] (one per stage)
+_PIPELINE_PLANNERS: Dict[str, Callable] = {}
+
+
+def register_pipeline_planner(name: str, fn: Optional[Callable] = None):
+    """Register a pipeline planning strategy under ``name`` (decorator or
+    direct call, mirroring :func:`register_planner`).  A pipeline planner
+    takes ``(spec, barriers, *, stage_mode, n_restarts, steps, seed,
+    device)`` — ``spec`` a :class:`repro_torch.core.pipeline.PipelineSpec`
+    — and returns one :class:`ExecutionPlan` per stage.  Registered names
+    are immediately usable in :func:`optimize_pipeline` and
+    :meth:`repro_torch.api.GeoPipeline.plan`."""
+    if fn is None:
+        return lambda f: register_pipeline_planner(name, f)
+    if name in _PIPELINE_PLANNERS:
+        raise ValueError(f"pipeline planner {name!r} is already registered")
+    _PIPELINE_PLANNERS[name] = fn
+    return fn
+
+
+def get_pipeline_planner(name: str) -> Callable:
+    try:
+        return _PIPELINE_PLANNERS[name]
+    except KeyError:
+        raise ValueError(
+            f"pipeline mode must be one of {available_pipeline_modes()}, "
+            f"got {name!r}"
+        ) from None
+
+
+def available_pipeline_modes() -> Tuple[str, ...]:
+    """Names of every registered pipeline planner."""
+    return tuple(_PIPELINE_PLANNERS)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelinePlanResult:
+    """One plan per stage of a pipeline, priced end to end through
+    :meth:`repro_torch.core.makespan.CostModel.price_pipeline`.  Each
+    per-stage :class:`PlanResult` carries that stage's *own* modeled span
+    over its derived ``D``; ``starts``/``finishes`` compose them along the
+    DAG's critical path and ``makespan`` is the end-to-end total."""
+
+    results: Tuple[PlanResult, ...]
+    makespan: float
+    starts: Tuple[float, ...]
+    finishes: Tuple[float, ...]
+    #: each stage's derived source vector (MB) under the chosen plans
+    stage_D: Tuple[np.ndarray, ...]
+    mode: str
+    stage_mode: str
+    barriers: Tuple[str, str, str]
+    objective: float
+
+    @property
+    def plans(self) -> Tuple[ExecutionPlan, ...]:
+        return tuple(r.plan for r in self.results)
+
+    @property
+    def stage_makespans(self) -> Tuple[float, ...]:
+        return tuple(r.makespan for r in self.results)
+
+    def __repr__(self):
+        stages = " ".join(
+            f"{s:.1f}@{t:.1f}s" for s, t in
+            zip(self.stage_makespans, self.starts)
+        )
+        return (
+            f"PipelinePlanResult(mode={self.mode}, "
+            f"barriers={''.join(self.barriers)}, "
+            f"stages=[{stages}], makespan={self.makespan:.1f}s)"
+        )
+
+
+def _pipeline_result(
+    spec: PipelineSpec, plans, barriers, mode: str, stage_mode: str,
+    objective: float,
+) -> PipelinePlanResult:
+    """Price a stage stack end to end (float64) and wrap it."""
+    cm = CostModel(spec.stages[0].platform, barriers)
+    priced = cm.price_pipeline(spec, plans, barriers)
+    results = []
+    for k, (plan, out) in enumerate(zip(plans, priced["stages"])):
+        breakdown = attribute_phases(out)
+        results.append(PlanResult(
+            plan=plan,
+            makespan=breakdown["makespan"],
+            breakdown=breakdown,
+            mode=f"{mode}:{stage_mode}",
+            barriers=tuple(barriers),
+            objective=breakdown["makespan"],
+        ))
+    return PipelinePlanResult(
+        results=tuple(results),
+        makespan=float(priced["makespan"]),
+        starts=tuple(float(t) for t in priced["start"]),
+        finishes=tuple(float(t) for t in priced["finish"]),
+        stage_D=tuple(priced["D"]),
+        mode=mode,
+        stage_mode=stage_mode,
+        barriers=tuple(barriers),
+        objective=objective,
+    )
+
+
+def optimize_pipeline(
+    spec: PipelineSpec,
+    mode: str = "end_to_end",
+    stage_mode: str = "e2e_multi",
+    barriers: Tuple[str, str, str] = BARRIERS_ALL_GLOBAL,
+    n_restarts: int = 16,
+    steps: int = 400,
+    seed: int = 0,
+    device: Optional[DeviceLike] = None,
+) -> PipelinePlanResult:
+    """Plan every stage of a pipeline with the given pipeline ``mode`` (any
+    name in :func:`available_pipeline_modes`); every solve runs on
+    ``device`` (default: the process default, the card).  Built in:
+
+    * ``stagewise``   — plan each stage myopically in topological order
+      with the per-stage ``stage_mode`` planner, each stage's ``D``
+      derived from the already-fixed upstream plans.  This is the
+      baseline the paper's end-to-end argument extends across stages: it
+      places stage-``k`` reducers where stage ``k`` finishes fastest,
+      even when that strands stage ``k+1``'s input behind slow links.
+    * ``end_to_end``  — one annealed optimization over *all* stages'
+      stacked ``x``/``y`` against the composed pipeline makespan, with
+      gradients flowing through the inter-stage ``D`` coupling
+      (downstream ``D`` is a function of upstream ``y``).  The stagewise
+      stack competes as a float64 candidate, so ``end_to_end`` is never
+      modeled-worse than ``stagewise``.
+
+    The result prices every candidate stack end to end through the one
+    float64 cost model (:meth:`CostModel.price_pipeline`)."""
+    dev = resolve_device(device)
+    planner = get_pipeline_planner(mode)
+    barriers = tuple(barriers)
+    plans = planner(
+        spec, barriers,
+        stage_mode=stage_mode, n_restarts=n_restarts, steps=steps, seed=seed,
+        device=dev,
+    )
+    res = _pipeline_result(spec, plans, barriers, mode, stage_mode, 0.0)
+    return dataclasses.replace(res, objective=res.makespan)
+
+
+def _stagewise_plans(
+    spec: PipelineSpec, barriers, *, stage_mode, n_restarts, steps, seed,
+    device,
+) -> "list[ExecutionPlan]":
+    """Topological-greedy stage planning (shared by ``stagewise`` itself
+    and the warm starts / competing candidate of ``end_to_end``)."""
+    planner = get_planner(stage_mode)
+    sub = spec.substrate
+    plans: List[Optional[ExecutionPlan]] = [None] * spec.n_stages
+    # topo order guarantees every ancestor is planned before its stage's D
+    # is read, so filler plans in not-yet-planned slots never influence it
+    # — and the coupling formula stays in its one home, derived_D
+    filler = uniform_plan(sub.view(np.zeros(sub.nS), 1.0))
+    for pos, k in enumerate(spec.topo_order()):
+        stage = spec.stages[k]
+        if stage.deps:
+            D = spec.derived_D(
+                [p if p is not None else filler for p in plans]
+            )[k]
+            view = sub.view(D, stage.alpha, name=f"{sub.name}/stage{k}")
+        else:
+            view = stage.platform
+        plan, _ = planner(view, barriers, n_restarts=n_restarts, steps=steps,
+                          seed=seed + 17 * pos, fixed_x=None, device=device)
+        plans[k] = plan
+    return plans  # type: ignore[return-value]
+
+
+@register_pipeline_planner("stagewise")
+def _stagewise_pipeline(spec, barriers, *, stage_mode, n_restarts, steps,
+                        seed, device):
+    """Each stage planned as if it were the last: the per-stage-myopic
+    baseline (upstream plans fixed before a downstream stage is even
+    looked at)."""
+    return _stagewise_plans(
+        spec, barriers, stage_mode=stage_mode, n_restarts=n_restarts,
+        steps=steps, seed=seed, device=device,
+    )
+
+
+@_counted_solver(static_argnames=("topo", "deps", "barriers", "steps"))
+def _solve_pipeline_batch(
+    D_roots,  # (K, nS) — root stages' D (zero rows for dependent stages)
+    alphas,  # (K,)
+    out_scales,  # (K,)
+    caps,  # 4-tuple: B_sm, B_mr, C_m, C_r
+    logits_x0,  # (R, K, nS, nM)
+    logits_y0,  # (R, K, nR)
+    scale,
+    topo: Tuple[int, ...],
+    deps: Tuple[Tuple[int, ...], ...],
+    barriers: Tuple[str, str, str],
+    steps: int,
+    lr: float = 0.08,
+    tau0_frac: float = 0.3,
+    tau1_frac: float = 1e-3,
+):
+    """Anneal ``R`` restarts of the *composed pipeline* makespan over all
+    stages' stacked plans.  Each downstream stage's ``D`` is rebuilt from
+    its upstream stages' ``y`` inside the loss, so gradients flow through
+    the inter-stage coupling — reducer placement of stage ``k`` feels
+    stage ``k+1``'s push costs.  The stage loop unrolls over ``topo``:
+    each anneal step costs about ``K`` single-job step graphs."""
+    K = logits_y0.shape[1]
+
+    def pipeline_span(x, y, mx, pmax):
+        total: list = [None] * K
+        finish: list = [None] * K
+        for k in topo:
+            if deps[k]:
+                Dk = sum(
+                    out_scales[u] * alphas[u] * total[u] * y[u]
+                    for u in deps[k]
+                )
+            else:
+                Dk = D_roots[k]
+            total[k] = torch.sum(Dk)
+            vols = analytic_volumes(Dk, x[k], y[k], alphas[k], xp=torch)
+            out = volume_model(*vols, *caps, barriers, mx, pmax, xp=torch)
+            if deps[k]:
+                start = mx(torch.stack([finish[u] for u in deps[k]]))
+            else:
+                start = 0.0
+            finish[k] = start + out["makespan"]
+        return mx(torch.stack(finish))
+
+    return _anneal_stack(pipeline_span, logits_x0, logits_y0, scale, steps,
+                         lr, tau0_frac, tau1_frac)
+
+
+@register_pipeline_planner("end_to_end")
+def _end_to_end_pipeline(spec, barriers, *, stage_mode, n_restarts, steps,
+                         seed, device):
+    """The paper's end-to-end argument lifted across stages: one annealed
+    optimization over every stage's stacked ``x``/``y`` against the
+    composed pipeline makespan.  Warm starts include the stagewise stack
+    (which also competes in the float64 selection, so the result is never
+    modeled-worse than ``stagewise``), a uniform stack, and a
+    placement-aware stack that biases every non-sink stage's reducers
+    toward nodes with fast *outgoing* push links — the sites the next
+    stage can actually leave from."""
+    K, sub = spec.n_stages, spec.substrate
+    nS, nM, nR = sub.nS, sub.nM, sub.nR
+    stagewise = _stagewise_plans(
+        spec, barriers, stage_mode=stage_mode, n_restarts=n_restarts,
+        steps=steps, seed=seed, device=device,
+    )
+    # the restarts' logits in the reference's order and draws, float64,
+    # cast once: the stagewise stack, a uniform stack, the greedy x with
+    # the exit-placed y, then random stacks from the numpy stream
+    eps = 1e-9
+    rng = np.random.default_rng(seed)
+    sw_x = np.stack([np.log(np.asarray(p.x) + eps) for p in stagewise])
+    sw_y = np.stack([np.log(np.asarray(p.y) + eps) for p in stagewise])
+
+    greedy_x = np.broadcast_to(
+        np.log(sub.B_sm / sub.B_sm.max() + eps), (K, nS, nM)
+    ).copy()
+    # reducers that downstream stages can leave from: bias stage k's y by
+    # the mean outgoing push bandwidth of the node hosting each reducer
+    # (reducer r == source r on a pipeline-capable substrate)
+    has_children = [False] * K
+    for stage in spec.stages:
+        for u in stage.deps:
+            has_children[u] = True
+    exit_bias = (
+        np.log(np.mean(sub.B_sm, axis=1) / sub.B_sm.max() + eps)
+        if nS == nR else np.zeros(nR)
+    )
+    sink_bias = np.log(sub.C_r / sub.C_r.max() + eps)
+    placed_y = np.stack([
+        exit_bias if has_children[k] else sink_bias for k in range(K)
+    ])
+    lx = [sw_x, np.zeros((K, nS, nM)), greedy_x]
+    ly = [sw_y, np.zeros((K, nR)), placed_y]
+    while len(lx) < n_restarts:
+        sigma = rng.uniform(0.3, 3.0)
+        lx.append(rng.normal(0.0, sigma, size=(K, nS, nM)))
+        ly.append(rng.normal(0.0, sigma, size=(K, nR)))
+
+    D_roots = np.zeros((K, nS))
+    for k, stage in enumerate(spec.stages):
+        if not stage.deps:
+            D_roots[k] = stage.platform.D
+    cm = CostModel(spec.stages[0].platform, barriers)
+    scale = max(
+        float(cm.price_pipeline(spec, stagewise)["makespan"]), 1e-6
+    )
+    xs, ys, _ = _solve_pipeline_batch(
+        _f32(D_roots, device),
+        _f32([s.alpha for s in spec.stages], device),
+        _f32([s.out_scale for s in spec.stages], device),
+        tuple(_f32(a, device)
+              for a in (sub.B_sm, sub.B_mr, sub.C_m, sub.C_r)),
+        _f32(np.stack(lx[:n_restarts]), device),
+        _f32(np.stack(ly[:n_restarts]), device),
+        _f32(scale, device),
+        topo=spec.topo_order(),
+        deps=tuple(s.deps for s in spec.stages),
+        barriers=tuple(barriers),
+        steps=steps,
+    )
+    xs, ys = xs.cpu().numpy(), ys.cpu().numpy()
+
+    # exact float64 end-to-end pricing picks the winner; the stagewise
+    # stack competes as candidate -1
+    candidates = [
+        _normalized_plans(xs[r], ys[r], "end_to_end")
+        for r in range(xs.shape[0])
+    ]
+    candidates.append([
+        dataclasses.replace(p, meta="end_to_end") for p in stagewise
+    ])
+    scores = [
+        float(cm.price_pipeline(spec, plans)["makespan"])
+        for plans in candidates
+    ]
+    return candidates[int(np.argmin(scores))]
 
 
 # ---------------------------------------------------------------------------

@@ -1092,3 +1092,44 @@ def test_run_online_times_its_solves_on_the_card(card, monkeypatch):
     assert all(torch.device(d).type == "cuda" for d in syncs)
     assert second.ema > 0.0 and second.charge_s() == 10.0 ** (
         round(np.log10(second.ema) * 2.0) / 2.0)
+
+
+# ---------------------------------------------------------------------------
+# multi-stage pipelines: the end_to_end solve on the card
+# ---------------------------------------------------------------------------
+
+def test_pipeline_solver_on_the_card_matches_the_cpu(card, monkeypatch):
+    """``_solve_pipeline_batch`` for 25 steps from the inputs the
+    ``end_to_end`` planner builds for a 3-stage chain on the 8-node
+    PlanetLab substrate (its temperature unit the stagewise stack's
+    price): x, y at atol 1e-4 and the exact pipeline span at rtol 1e-4,
+    card against CPU."""
+    from repro_torch.core import chain_spec, optimize as O, optimize_pipeline
+
+    sub, views = _schedule_views(1)
+    spec = chain_spec([views[0], sub.view(np.zeros(sub.nS), 0.5),
+                       sub.view(np.zeros(sub.nS), 1.0)],
+                      out_scales=[0.5, 1.0, 1.0])
+    seen = []
+    real = O._solve_pipeline_batch
+
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(O, "_solve_pipeline_batch", record)
+    res = optimize_pipeline(spec, "end_to_end", n_restarts=6, steps=50,
+                            device=card)
+    assert np.isfinite(res.makespan)
+    (args, kwargs), = seen
+    assert all(t.device.type == "cuda" for t in args[4:7])
+
+    def on(dev):
+        moved = [tuple(t.to(dev) for t in a) if isinstance(a, tuple)
+                 else a.to(dev) for a in args]
+        return real(*moved, **dict(kwargs, steps=25))
+
+    (gx, gy, ge), (wx, wy, we) = on(card), on(torch.device("cpu"))
+    torch.testing.assert_close(gx.cpu(), wx, atol=1e-4, rtol=0.0)
+    torch.testing.assert_close(gy.cpu(), wy, atol=1e-4, rtol=0.0)
+    torch.testing.assert_close(ge.cpu(), we, atol=0.0, rtol=1e-4)

@@ -24,12 +24,15 @@ REF = ROOT / "src" / "repro"
 
 #: modules the port carries as byte-identical copies of the reference's
 COPIES = [
+    "analysis/audit.py",
     "analysis/validate.py",
     "core/platform.py",
     "core/plan.py",
     "core/milp.py",
+    "core/pipeline.py",
     "core/simulate.py",
     "core/fluid.py",
+    "core/topology.py",
     "data/__init__.py",
     "data/pipeline.py",
     "data/tokenizer.py",
@@ -57,7 +60,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.serve.engine" in modules
     assert "repro_torch.launch.serve" in modules
     for name in ("train.optim", "train.compression", "train.train_step",
-                 "train.checkpoint", "data.pipeline", "launch.train"):
+                 "train.checkpoint", "data.pipeline", "launch.train",
+                 "core.pipeline", "core.topology", "analysis.audit",
+                 "analysis.__main__"):
         assert f"repro_torch.{name}" in modules
     script = f"""
 import importlib, importlib.abc, sys
@@ -106,6 +111,22 @@ def test_no_jax_or_repro_import(path):
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_is_byte_identical(rel):
     assert (PORT / rel).read_bytes() == (REF / rel).read_bytes(), rel
+
+
+def test_core_exports_every_reference_name():
+    """``repro_torch.core.__all__`` holds the reference's names, no more,
+    each one importable."""
+    import repro_torch.core as port_core
+
+    tree = ast.parse((REF / "core" / "__init__.py").read_text())
+    ref_all = next(
+        ast.literal_eval(node.value) for node in tree.body
+        if isinstance(node, ast.Assign)
+        and any(getattr(t, "id", None) == "__all__" for t in node.targets))
+    assert set(port_core.__all__) == set(ref_all)
+    assert len(port_core.__all__) == len(set(port_core.__all__))
+    for name in port_core.__all__:
+        assert getattr(port_core, name) is not None, name
 
 
 @pytest.mark.parametrize(

@@ -296,7 +296,7 @@ def test_geoschedule_validates_members():
     views = job_views(TC, "contended_pair")
     with pytest.raises(ValueError, match="at least one job"):
         TA.GeoSchedule([])
-    with pytest.raises(TypeError, match="pipeline members"):
+    with pytest.raises(TypeError, match="must be GeoJob or GeoPipeline"):
         TA.GeoSchedule([TA.GeoJob(views[0]), object()])
     other = TC.Substrate.of(TC.planetlab_platform(2, seed=0)).view(
         np.ones(8), 1.0)
