@@ -22,6 +22,9 @@
 * :mod:`repro_torch.core.topology` — 3-tier edge→region→backbone substrate
   and job-mix generators for the 10²–10³-node scale tiers (a copy of the
   reference's).
+* :mod:`repro_torch.core.collective_plan` — the technique applied to
+  multi-pod gradient aggregation.
+* :mod:`repro_torch.core.moe_plan` — the technique applied to MoE dispatch.
 """
 from .fluid import FluidSim
 from .makespan import (

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from .config import ArchConfig, Block
+from .sharding import shard
 
 Params = Dict[str, Any]
 Stack = Tuple[int, ...]
@@ -205,6 +206,9 @@ def attention_fwd(
     q = _ein("btd,dhk->bhtk", x, p["wq"])
     k = _ein("btd,dhk->bhtk", x, p["wk"])
     v = _ein("btd,dhk->bhtk", x, p["wv"])
+    q = shard(q, "act_batch", "act_heads", "act_seq", None)
+    k = shard(k, "act_batch", "act_kv_heads", "act_seq", None)
+    v = shard(v, "act_batch", "act_kv_heads", "act_seq", None)
     if cfg.qk_norm:
         q = _rms_headwise(q, p["q_scale"])
         k = _rms_headwise(k, p["k_scale"])
@@ -256,8 +260,9 @@ def attention_fwd(
         out = kref.attention_ref(q, k, v, causal=True, window=blk.window)
     else:
         out = chunked_attention(q, k, v, True, blk.window, 0)
+    out = shard(out, "act_batch", "act_heads", "act_seq", None)
     y = _ein("bhtk,hkd->btd", out, p["wo"])
-    return y, new_cache
+    return shard(y, "act_batch", "act_seq", "act_embed"), new_cache
 
 
 def _quant_kv(x: torch.Tensor):
@@ -310,8 +315,26 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator, stack: Stack = (),
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh form; torch's default is exact erf
+    # jax.nn.gelu defaults to the tanh form; torch's default is exact erf.
+    # In bfloat16 XLA lowers it with bfloat16 constants (sqrt(2/pi) is
+    # 0.796875, 0.044715 is 0.044677734375) and rounds after every step;
+    # the same steps give the reference's bits, where F.gelu rounds once
+    if x.dtype == torch.bfloat16:
+        inner = 0.796875 * (x + 0.044677734375 * (x * x * x))
+        return x * (0.5 * (1 + torch.tanh(inner)))
     return F.gelu(x, approximate="tanh")
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.sigmoid: XLA on the CPU expands a bfloat16 logistic into
+    # 1 / (1 + exp(-x)) rounded after every step (see _silu)
+    return (torch.exp(-x) + 1).reciprocal()
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.softplus is logaddexp(x, 0), which XLA computes as
+    # max(x, 0) + log1p(exp(-|x|)), rounded after every step in bfloat16
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -321,7 +344,7 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     # third of bfloat16 silu(g) * u products then differ by an ulp, enough
     # to flip Granite-MoE's routing downstream).  Out of place: autograd
     # keeps exp's output for its backward
-    return x * (torch.exp(-x) + 1).reciprocal()
+    return x * _sigmoid(x)
 
 
 def _act(cfg: ArchConfig, x):
@@ -331,11 +354,14 @@ def _act(cfg: ArchConfig, x):
 def mlp_fwd(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     g = _ein("btd,df->btf", x, p["w_gate"])
     u = _ein("btd,df->btf", x, p["w_up"])
-    return _ein("btf,fd->btd", _act(cfg, g) * u, p["w_down"])
+    h = shard(_act(cfg, g) * u, "act_batch", "act_seq", "act_ffn")
+    y = _ein("btf,fd->btd", h, p["w_down"])
+    return shard(y, "act_batch", "act_seq", "act_embed")
 
 
 # ---------------------------------------------------------------------------
-# MoE (capacity-dropped, optionally geo-planned; one device)
+# MoE (capacity-dropped, optionally geo-planned; one device or expert
+# parallel over a mesh)
 # ---------------------------------------------------------------------------
 
 def _pad_experts(cfg: ArchConfig, tp: int) -> int:
@@ -426,15 +452,87 @@ def _moe_local(cfg: ArchConfig, p: Params, x2d: torch.Tensor,
 
 def moe_fwd(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh=None,
             use_kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-device MoE: every token dispatched over all experts.
-    Returns (y (B, T, d), aux_loss)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE over a mesh is not ported: ROADMAP.md queue "
-            "1, item 11 (multi-GPU)")
-    B, T, d = x.shape
-    y2d, aux = _moe_local(cfg, p, x.reshape(B * T, d), use_kernel=use_kernel)
-    return y2d.reshape(B, T, d), aux
+    """MoE FFN → (y (B, T, d), aux_loss).  Without a mesh (or one without a
+    ``"model"`` dim): every token dispatched over all experts on one device.
+
+    With a mesh: expert parallel, as the reference's ``shard_map`` over the
+    batch axes for tokens and ``"model"`` for experts.  ``x`` is this
+    rank's tokens (its shard of the batch over the batch axes) and ``p``
+    the full parameters; each rank routes its tokens over all experts and
+    dispatches them to its own experts only (``kops.dispatch_at_slots``,
+    the ``moe_dispatch`` kernel on a CUDA tensor), and the contributions
+    are summed over ``"model"``: deterministic EP without all-to-all.
+    ``y`` is this rank's tokens' output, ``aux`` the global-batch loss."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        B, T, d = x.shape
+        y2d, aux = _moe_local(cfg, p, x.reshape(B * T, d),
+                              use_kernel=use_kernel)
+        return y2d.reshape(B, T, d), aux
+    return _moe_expert_parallel(cfg, p, x, mesh, use_kernel)
+
+
+def _moe_expert_parallel(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh,
+                         use_kernel: bool):
+    """The reference's expert-parallel ``local`` body on this rank, line for
+    line, with its collectives written out (:mod:`.sharding`'s ops carry
+    the gradients of the SPMD program)."""
+    from . import sharding as S
+
+    Bl, Tl, d = x.shape
+    N, k = Bl * Tl, cfg.top_k
+    E = p["router"].shape[1]
+    M = mesh.size(mesh.mesh_dim_names.index("model"))
+    El = E // M
+    lo = mesh.get_local_rank("model") * El
+    batch = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    x2d = x.reshape(N, d)
+    # router over *all* experts, dispatch to the local shard only: tokens
+    # whose expert lives elsewhere contribute nothing here and are summed
+    # in over "model"
+    gates_all, top_gates, top_ids = route(cfg, p, x2d)
+    pe = gates_all.mean(dim=0)
+    fe = torch.zeros((E,), device=x.device).index_add_(
+        0, top_ids.reshape(-1),
+        torch.ones((N * k,), device=x.device) / (N * k))
+    # aggregate the load statistics over the data shards first, so the aux
+    # loss equals the single-device (global-batch) definition
+    if batch:
+        pe = S.mean_over(pe, mesh, batch)
+        fe = S.mean_over(fe, mesh, batch)
+    aux = E * torch.sum(pe * fe)
+    # localize: expert ids relative to this shard; non-local -> dropped.
+    # The tokens and gates reach the local experts' part of the sum, whose
+    # gradients the other model ranks complete
+    x_part = S.grad_sum_over(x2d, mesh, "model")
+    gates_part = S.grad_sum_over(top_gates, mesh, "model")
+    flat_ids = top_ids.reshape(-1) - lo
+    local_mask = (flat_ids >= 0) & (flat_ids < El)
+    flat_gates = torch.where(local_mask, gates_part.reshape(-1), 0.0)
+    flat_ids = torch.clamp(flat_ids, 0, El - 1)
+    C = int(np.ceil(N * k / E * cfg.capacity_factor))
+    C = max(C, k)
+    capf = p["plan_capacity"][lo:lo + El]
+    cap_e = torch.clamp(torch.round(capf * C), min=1).to(torch.int32)
+    # slots over the local assignment stream (masked entries get slot C so
+    # they never land)
+    slots = kops.compute_slots(torch.where(local_mask, flat_ids, El), El + 1)
+    keep = local_mask & (slots < cap_e[flat_ids])
+    slot_ids = torch.where(keep, torch.clamp(slots, max=C - 1), C).int()
+    expert_ids = flat_ids.int()
+    tokens = x_part.repeat_interleave(k, dim=0)  # row n*k + j is token n
+    buf = kops.dispatch_at_slots(tokens, expert_ids, slot_ids, El, C,
+                                 use_kernel=use_kernel)
+    wg, wu, wd = (p[name][lo:lo + El] for name in ("w_gate", "w_up", "w_down"))
+    h = _act(cfg, _ein("ecd,edf->ecf", buf, wg)) * _ein("ecd,edf->ecf", buf, wu)
+    out = _ein("ecf,efd->ecd", h, wd)
+    back = kops.combine_tokens(out, expert_ids, slot_ids, flat_gates,
+                               C).to(x.dtype).view(N, k, d)
+    y = back[:, 0]
+    for j in range(1, k):
+        y = y + back[:, j]
+    y = S.sum_over(y, mesh, "model")
+    aux = S.mean_over(aux, mesh, ("model",))  # alike on every shard
+    return y.reshape(Bl, Tl, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -488,16 +586,23 @@ def rglru_fwd(
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     xb = _ein("btd,dw->btw", x, p["in_x"])
     gb = _gelu(_ein("btd,dw->btw", x, p["in_gate"]))
+    xb = shard(xb, "act_batch", "act_seq", "act_ffn")
     conv_prev = state["conv"] if state is not None else None
     xb, conv_new = _causal_conv(xb, p["conv"], conv_prev)
-    # diagonal recurrence and input gates
-    a = torch.sigmoid(xb * p["a_gate_w"] + p["a_gate_b"])
-    gate_x = torch.sigmoid(xb * p["x_gate_w"])
+    # diagonal recurrence and input gates.  The scan casts both inputs to
+    # float32, and XLA computes an op whose bfloat16 result is only cast to
+    # float32 in float32, unrounded (as the norm reads the residual sum): the
+    # sigmoid's last step (the division) and the product x * gate_x reach the
+    # scan unrounded, and its output is rounded to x's dtype, as the
+    # reference's ``astype`` does
+    a = (torch.exp(-(xb * p["a_gate_w"] + p["a_gate_b"])) + 1).float()
+    gate_x = _sigmoid(xb * p["x_gate_w"])
     h0 = state["h"] if state is not None else None
     h, hT = kops.gated_linear_recurrence(
-        (xb * gate_x).contiguous(), a.contiguous(), h0, use_kernel=use_kernel
+        xb.float() * gate_x.float(), a.reciprocal(), h0, use_kernel=use_kernel
     )
-    out = _ein("btw,wd->btd", h * gb, p["out_proj"])
+    out = _ein("btw,wd->btd", h.to(xb.dtype) * gb, p["out_proj"])
+    out = shard(out, "act_batch", "act_seq", "act_embed")
     new_state = {"h": hT, "conv": conv_new} if state is not None else None
     return out, new_state
 
@@ -538,20 +643,27 @@ def mamba_fwd(
     promotes everything after the conv to float32, as in the reference."""
     di, ds, dtr = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_dt_rank_
     xz = _ein("btd,de->bte", x, p["in_proj"])
+    xz = shard(xz, "act_batch", "act_seq", "act_ffn")
     xi, z = torch.split(xz, di, dim=-1)
     conv_prev = state["conv"] if state is not None else None
     xi, conv_new = _causal_conv(xi, p["conv"], conv_prev)
-    xi = F.silu(xi)
+    # silu's last step (x times the rounded sigmoid) reaches the scan, which
+    # casts its inputs to float32, unrounded: XLA computes an op whose
+    # bfloat16 result is only cast to float32 in float32 (see rglru_fwd);
+    # x_proj reads it rounded.  The scan then takes every input in float32
+    # (the kernel wants one dtype; the rest are exact in it) and its output
+    # is rounded to the block's dtype, as the reference's ``astype`` does
+    xs = xi.float() * _sigmoid(xi).float()
+    xi = xs.to(xi.dtype)
     proj = _ein("bti,ie->bte", xi, p["x_proj"])
     dt, Bc, Cc = torch.split(proj, [dtr, ds, ds], dim=-1)
-    # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x above 20,
-    # where the two agree in float32 and bfloat16
-    delta = F.softplus(_ein("btr,ri->bti", dt, p["dt_proj"]) + p["dt_bias"])
+    delta = _softplus(_ein("btr,ri->bti", dt, p["dt_proj"]) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     h0 = state["h"] if state is not None else None
-    y, hT = kops.ssm_scan(xi, delta, A, Bc, Cc, p["D"], h0,
-                          use_kernel=use_kernel)
-    y = y * F.silu(z)
+    y, hT = kops.ssm_scan(xs, delta.float(), A, Bc.float(), Cc.float(),
+                          p["D"], h0, use_kernel=use_kernel)
+    y = y.to(xi.dtype) * _silu(z)
     out = _ein("bti,id->btd", y, p["out_proj"])
+    out = shard(out, "act_batch", "act_seq", "act_embed")
     new_state = {"h": hT, "conv": conv_new} if state is not None else None
     return out, new_state

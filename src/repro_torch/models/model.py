@@ -9,7 +9,8 @@ unstacked.
 
 Public entry points:
 
-* ``init(cfg, generator, device, dtype)``          → params
+* ``init(cfg, generator, device, dtype, tp)``      → params
+* ``param_shardings(cfg, params)``                 → the spec of each leaf
 * ``cast_params(params, dtype, device)``           → params in the compute dtype
 * ``forward(cfg, params, batch, ...)``             → logits, cache, aux
   (aux: the MoE blocks' load-balance losses summed, 0 without MoE)
@@ -25,8 +26,10 @@ call, the server casts once (:func:`init` with ``dtype=``, or
 float32 masters and passes ``compute_dtype=`` to :func:`forward`, which
 casts as the reference does, inside the autograd graph, so gradients land
 on the masters.  ``final_norm`` stays float32, as the reference leaves
-it.  Decode updates the cache in place.  MoE FFNs run on one device (no
-expert parallelism over a mesh).
+it.  Decode updates the cache in place.  With ``mesh=`` (a ``DeviceMesh``
+with a ``"model"`` dim) the MoE FFNs run expert parallel over it: the
+batch is this rank's shard over the batch axes, the parameters are full
+(:func:`repro_torch.models.layers.moe_fwd`).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from . import layers as L
 from .config import ArchConfig, Block
+from .sharding import shard
 
 Params = Dict[str, Any]
 
@@ -47,7 +51,7 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def _init_block(cfg: ArchConfig, blk: Block, gen: torch.Generator, stack,
-                dtype: torch.dtype) -> Params:
+                dtype: torch.dtype, tp: int) -> Params:
     p: Params = {"norm1": L.init_norm(cfg, stack, gen.device, dtype)}
     if blk.mixer == "attn":
         p["mixer"] = L.init_attention(cfg, gen, stack, dtype)
@@ -62,18 +66,19 @@ def _init_block(cfg: ArchConfig, blk: Block, gen: torch.Generator, stack,
         if blk.ffn == "dense":
             p["ffn"] = L.init_mlp(cfg, gen, stack, dtype)
         elif blk.ffn == "moe":
-            p["ffn"] = L.init_moe(cfg, gen, stack, dtype)
+            p["ffn"] = L.init_moe(cfg, gen, stack, dtype, tp=tp)
         else:
             raise ValueError(blk.ffn)
     return p
 
 
 def init(cfg: ArchConfig, generator: torch.Generator, device=None,
-         dtype: torch.dtype = torch.float32) -> Params:
+         dtype: torch.dtype = torch.float32, tp: int = 1) -> Params:
     """Random parameters from ``generator`` (seeded by the caller), built
     on ``device`` (default: the process default, the card) in ``dtype``;
     ``final_norm`` is float32.  The generator is moved to nothing: pass one
-    made on the same device."""
+    made on the same device.  ``tp`` — the tensor-parallel degree the MoE
+    experts are padded to a multiple of (the padding experts never win)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
@@ -81,12 +86,13 @@ def init(cfg: ArchConfig, generator: torch.Generator, device=None,
     G = cfg.n_groups
     params: Params = {
         "embed": L._normal(generator, (cfg.vocab, cfg.d_model), 0.02, dtype),
-        "groups": {f"blk{i}": _init_block(cfg, blk, generator, (G,), dtype)
+        "groups": {f"blk{i}": _init_block(cfg, blk, generator, (G,), dtype, tp)
                    for i, blk in enumerate(cfg.pattern)},
         "final_norm": L.init_norm(cfg, (), dev, torch.float32),
     }
     if cfg.tail:
-        params["tail"] = {f"blk{i}": _init_block(cfg, blk, generator, (), dtype)
+        params["tail"] = {f"blk{i}": _init_block(cfg, blk, generator, (),
+                                                 dtype, tp)
                           for i, blk in enumerate(cfg.tail)}
     if not cfg.tie_embeddings:
         params["unembed"] = L._normal(generator, (cfg.vocab, cfg.d_model),
@@ -98,6 +104,64 @@ def _tree_map(fn, tree, path=()):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v, path + (k,)) for k, v in tree.items()}
     return fn(path, tree)
+
+
+#: leaf-name → logical axes for the value *without* the group-stack axis.
+#: Group-stacked leaves (everything under ``groups/``) get a leading None.
+_PARAM_RULES = {
+    "embed": ("vocab", "embed"),
+    "unembed": ("vocab", "embed"),
+    "wq": ("qkv_fsdp", "heads", None),
+    "wk": ("qkv_fsdp", "kv_heads", None),
+    "wv": ("qkv_fsdp", "kv_heads", None),
+    "wo": ("heads", None, "qkv_fsdp"),
+    "router": (None, None),
+    "plan_bias": (None,),
+    "plan_capacity": ("experts",),
+    "in_proj": ("ssm_fsdp", "ssm_inner"),
+    "conv": (None, "ssm_inner"),
+    "x_proj": ("ssm_inner", None),
+    "dt_proj": (None, "ssm_inner"),
+    "dt_bias": ("ssm_inner",),
+    "A_log": ("ssm_inner", None),
+    "D": ("ssm_inner",),
+    "out_proj": ("ssm_inner", "ssm_fsdp"),
+    "in_x": ("ssm_fsdp", "ssm_inner"),
+    "in_gate": ("ssm_fsdp", "ssm_inner"),
+    "a_gate_w": ("ssm_inner",),
+    "a_gate_b": ("ssm_inner",),
+    "x_gate_w": ("ssm_inner",),
+}
+
+
+def param_shardings(cfg: ArchConfig, params: Params):
+    """The spec of every leaf of the parameter tree under the active rules
+    (FSDP over 'data', TP/EP over 'model', experts over 'model'): the
+    reference's ``PartitionSpec`` entries as tuples."""
+    from .sharding import spec_for
+
+    def spec(path, leaf):
+        name = path[-1]
+        stacked = path[0] == "groups"
+        nd = leaf.ndim - (1 if stacked else 0)
+        if name in ("w_gate", "w_up", "w_down"):
+            if nd == 3:  # MoE experts: (E, d, f)
+                names = ("experts", "expert_in", "expert_out")
+            elif name == "w_down":
+                names = ("ffn", "ffn_fsdp")
+            else:
+                names = ("ffn_fsdp", "ffn")
+        elif name in _PARAM_RULES:
+            names = _PARAM_RULES[name]
+        else:  # norm scales/biases etc.
+            names = (None,) * nd
+        if len(names) != nd:  # defensive: replicate anything unexpected
+            names = (None,) * nd
+        if stacked:
+            names = (None,) + tuple(names)
+        return spec_for(*names)
+
+    return _tree_map(spec, params)
 
 
 def _cast_f32(tree, dtype: torch.dtype):
@@ -191,7 +255,7 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _block_fwd(cfg, blk: Block, p: Params, x, positions, cache, mode,
-               use_kernels, max_cache_len):
+               mesh, use_kernels, max_cache_len):
     """One block → (x, new cache, the MoE aux loss or ``None``)."""
     h = L.apply_norm(cfg, p["norm1"], x)
     if blk.mixer == "attn":
@@ -228,7 +292,8 @@ def _block_fwd(cfg, blk: Block, p: Params, x, positions, cache, mode,
     if blk.ffn == "dense":
         x = x + L.mlp_fwd(cfg, p["ffn"], h)
     elif blk.ffn == "moe":
-        y, aux = L.moe_fwd(cfg, p["ffn"], h, use_kernel=use_kernels)
+        y, aux = L.moe_fwd(cfg, p["ffn"], h, mesh=mesh,
+                           use_kernel=use_kernels)
         x = x + y
     else:
         raise ValueError(blk.ffn)
@@ -248,6 +313,7 @@ def forward(
     batch: Dict[str, torch.Tensor],
     mode: str = "train",
     cache=None,
+    mesh=None,
     use_kernels: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
@@ -278,6 +344,7 @@ def forward(
         x = batch["embeds"].to(w_embed.dtype)
     else:
         x = w_embed[batch["tokens"].long()]
+    x = shard(x, "act_batch", "act_seq", "act_embed")
     B, T = x.shape[:2]
 
     positions = batch.get("positions")
@@ -300,7 +367,7 @@ def forward(
             if mode == "decode":
                 c = {k: v[g] for k, v in cache[name].items()}
             x, nc, aux_b = _block_fwd(cfg, blk, gp[name], x, positions, c,
-                                      mode, use_kernels, max_cache_len)
+                                      mode, mesh, use_kernels, max_cache_len)
             if aux_b is not None:
                 aux_g = aux_b if aux_g is None else aux_g + aux_b
             if mode == "decode":
@@ -336,7 +403,7 @@ def forward(
             name = f"blk{i}"
             c = cache["tail"][name] if mode == "decode" else None
             x, nc, aux_b = _block_fwd(cfg, blk, tail[name], x, positions, c,
-                                      mode, use_kernels, max_cache_len)
+                                      mode, mesh, use_kernels, max_cache_len)
             if aux_b is not None:
                 aux = aux + aux_b
             if mode == "decode":
@@ -358,6 +425,7 @@ def forward(
     if cfg.vocab_real is not None and cfg.vocab_real < cfg.vocab:
         # TP-padded vocab rows must never win a softmax (exact semantics)
         logits[..., cfg.vocab_real:] = -1e9
+    logits = shard(logits, "act_batch", "act_seq", "act_vocab")
     return logits, new_cache, aux
 
 
@@ -365,6 +433,7 @@ def loss_fn(
     cfg: ArchConfig,
     params: Params,
     batch: Dict[str, torch.Tensor],
+    mesh=None,
     use_kernels: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
@@ -378,7 +447,7 @@ def loss_fn(
     over the vocabulary (``where(iota == label)``, there so that the
     vocab-sharded logits reduce locally) gives the same value, and would
     cost a (B, T, V) float32 temporary on one card."""
-    logits, _, aux = forward(cfg, params, batch, mode="train",
+    logits, _, aux = forward(cfg, params, batch, mode="train", mesh=mesh,
                              use_kernels=use_kernels,
                              compute_dtype=compute_dtype, remat=remat)
     labels = batch["labels"].long()
@@ -394,16 +463,16 @@ def loss_fn(
 
 
 def prefill(cfg: ArchConfig, params: Params, batch, max_cache_len: int,
-            use_kernels: bool = False, last_only: bool = False):
-    return forward(cfg, params, batch, mode="prefill",
+            use_kernels: bool = False, last_only: bool = False, mesh=None):
+    return forward(cfg, params, batch, mode="prefill", mesh=mesh,
                    use_kernels=use_kernels, max_cache_len=max_cache_len,
                    last_only=last_only)
 
 
 def decode_step(cfg: ArchConfig, params: Params, batch, cache,
-                use_kernels: bool = False):
+                use_kernels: bool = False, mesh=None):
     """One decode step: batch['tokens'] (B, 1) (or (B, k) for speculative
     chunks), batch['positions'] (B, k) absolute positions.  ``cache`` is
     updated in place and returned."""
-    return forward(cfg, params, batch, mode="decode", cache=cache,
+    return forward(cfg, params, batch, mode="decode", cache=cache, mesh=mesh,
                    use_kernels=use_kernels)

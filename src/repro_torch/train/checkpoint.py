@@ -23,7 +23,13 @@ either package restores into the other's train state.
 * **retention**: keep the newest ``keep`` checkpoints, always preserving
   any checkpoint marked ``milestone``.
 * **restore** puts each leaf on the device and in the dtype of the
-  matching leaf of ``like``.
+  matching leaf of ``like``; with ``shardings`` (a matching tree of
+  :class:`~repro_torch.models.sharding.NamedSharding`) each stored full
+  array is distributed to its target placements, whatever mesh they
+  belong to: the elastic re-shard.
+* **sharded state**: a DTensor leaf is gathered in full
+  (``full_tensor()``, a collective: every rank of the mesh must call
+  ``save``), and rank 0 of the default process group alone writes.
 """
 from __future__ import annotations
 
@@ -69,8 +75,20 @@ def _rebuild(like, leaves: Dict[str, Any], prefix: str = ""):
 
 
 def _to_host(leaf: torch.Tensor) -> np.ndarray:
-    """A host copy of a tensor that later in-place updates cannot reach."""
+    """A host copy of a tensor that later in-place updates cannot reach; a
+    DTensor is gathered in full first."""
+    if hasattr(leaf, "full_tensor"):
+        leaf = leaf.full_tensor()
     return leaf.detach().to("cpu", copy=True).numpy()
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the default
+    process group, or a process without one."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -105,6 +123,8 @@ class CheckpointManager:
         written (the launcher saves its last step both ways)."""
         self.wait()
         snapshot = {p: _to_host(a) for p, a in _leaf_paths(tree).items()}
+        if not _writes():
+            return
         self._write(step, snapshot, extras or {}, milestone)
         self._gc()
 
@@ -114,6 +134,8 @@ class CheckpointManager:
         previous async save (so failures are not silent)."""
         self.wait()
         snapshot = {p: _to_host(a) for p, a in _leaf_paths(tree).items()}
+        if not _writes():
+            return
 
         def work():
             try:
@@ -183,10 +205,14 @@ class CheckpointManager:
             shutil.rmtree(d, ignore_errors=True)
 
     # -- restore --------------------------------------------------------------
-    def restore(self, step: Optional[int], like):
+    def restore(self, step: Optional[int], like, shardings=None):
         """Restore into the structure of ``like`` (a tree of tensors): each
         stored array lands on the device and in the dtype of ``like``'s leaf
-        at its path.  ``step=None`` takes the newest committed step.
+        at its path.  ``shardings``: optional matching tree of
+        ``NamedSharding`` (``None`` leaves stay full) — the elastic
+        re-shard path: the stored full arrays are distributed with the
+        *target* placements, whatever mesh they belong to (a collective
+        over that mesh).  ``step=None`` takes the newest committed step.
         Returns (tree, extras, step)."""
         if step is None:
             step = self.latest_step()
@@ -202,6 +228,7 @@ class CheckpointManager:
         missing = set(want) - set(stored)
         if missing:
             raise KeyError(f"checkpoint lacks leaves: {sorted(missing)[:5]} ...")
+        placing = _leaf_paths(shardings) if shardings is not None else {}
         out = {}
         for path, leaf in want.items():
             arr = np.load(os.path.join(d, "arrays", stored[path]["file"]))
@@ -212,4 +239,6 @@ class CheckpointManager:
                 )
             out[path] = torch.from_numpy(arr).to(device=leaf.device,
                                                  dtype=leaf.dtype)
+            if placing.get(path) is not None:
+                out[path] = placing[path].place(out[path])
         return _rebuild(like, out), manifest["extras"], step

@@ -1,12 +1,21 @@
 """The training step: microbatched gradient accumulation, AdamW, optional
-error-feedback gradient compression — :mod:`repro.train.train_step` on
-one device.
+error-feedback gradient compression — :mod:`repro.train.train_step`.
 
 ``make_train_step`` returns the step function.  The reference's
 ``lax.scan`` over microbatches is a Python loop that sums the gradients in
 float32; its ``jax.value_and_grad`` is ``torch.autograd.grad`` over the
-parameters' leaves.  ``state_shardings`` is not ported: it needs a mesh,
-and multi-GPU training is a later item of the port.
+parameters' leaves.
+
+On a mesh (``mesh=``, a ``DeviceMesh`` over the default process group)
+the state is DTensors placed by :func:`state_shardings`: FSDP over
+``data``, TP/EP over ``model``, moments and residuals like their
+parameters.  A step gathers each parameter in full (DTensor's all-gather),
+computes the loss and its gradients on this rank's rows of the batch (its
+shard over the batch axes; the MoE FFNs expert parallel over ``model``),
+and hands the gradients back to DTensor as partial values averaged over
+the batch axes: redistributing them to the parameters' placements is the
+reduce-scatter, and AdamW then runs on the DTensors, DTensor's sharding
+propagation doing the reductions of the global gradient norm.
 """
 from __future__ import annotations
 
@@ -22,7 +31,7 @@ from .optim import (AdamWConfig, AdamWState, adamw_init, adamw_update,
                     tree_get, tree_leaves)
 
 __all__ = ["TrainState", "TrainConfig", "make_train_step", "init_state",
-           "prng_key"]
+           "prng_key", "state_shardings", "place_state"]
 
 
 class TrainState(NamedTuple):
@@ -79,6 +88,67 @@ def init_state(cfg: ArchConfig, params, seed: int = 0,
     )
 
 
+def state_shardings(cfg: ArchConfig, state: TrainState, mesh) -> TrainState:
+    """The :class:`~repro_torch.models.sharding.NamedSharding` of every
+    leaf of the train state, under the active rules: optimizer moments and
+    residuals shard exactly like their parameters; scalars replicate.  The
+    rng is the host's key words, alike on every rank, and stays a plain
+    tensor (``None``)."""
+    from ..models.sharding import NamedSharding
+
+    pspecs = M.param_shardings(cfg, state.params)
+    named = M._tree_map(lambda _, s: NamedSharding.of(mesh, s), pspecs)
+    rep = NamedSharding.of(mesh, ())
+
+    def like_params(tree):
+        # moments/residual trees mirror params; scalar placeholders replicate
+        return M._tree_map(lambda path, leaf: rep if leaf.ndim == 0
+                           else tree_get(named, path), tree)
+
+    return TrainState(
+        params=named,
+        opt=AdamWState(step=rep, m=like_params(state.opt.m),
+                       v=like_params(state.opt.v)),
+        residual=like_params(state.residual),
+        rng=None,
+        step=rep,
+    )
+
+
+def place_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """``state`` (full tensors, alike on every rank) as DTensors placed by
+    ``shardings``; a leaf whose sharding is ``None`` stays as it is."""
+    def place(tree, sh):
+        if sh is None:
+            return tree
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(place(getattr(tree, f), getattr(sh, f))
+                                for f in tree._fields))
+        if isinstance(tree, dict):
+            return {k: place(v, sh[k]) for k, v in tree.items()}
+        return sh.place(tree)
+
+    return place(state, shardings)
+
+
+def _local_rows(batch, mesh):
+    """This rank's rows of a global batch: its shard over the batch axes
+    (the reference's ``P(("pod", "data"))`` on the batch dim)."""
+    axes = [a for a in ("pod", "data") if a in mesh.mesh_dim_names]
+    index, count = 0, 1
+    for a in axes:
+        n = mesh.size(mesh.mesh_dim_names.index(a))
+        index, count = index * n + mesh.get_local_rank(a), count * n
+    out = {}
+    for name, a in batch.items():
+        if a.shape[0] % count:
+            raise ValueError(f"batch of {a.shape[0]} rows does not split "
+                             f"over {count} batch shards")
+        rows = a.shape[0] // count
+        out[name] = a[index * rows:(index + 1) * rows]
+    return out, axes
+
+
 def make_train_step(
     cfg: ArchConfig,
     tcfg: TrainConfig,
@@ -86,13 +156,15 @@ def make_train_step(
     lr_fn: Optional[Callable] = None,
 ) -> Callable:
     """The train-step function ``step(state, batch) -> (state, metrics)``;
-    ``batch`` holds tensors on the parameters' device.  The state's
-    tensors are updated in place and returned in a new ``TrainState``;
-    ``metrics`` are device tensors (reading one waits for the step)."""
-    if mesh is not None:
+    ``batch`` holds tensors on the parameters' device (on a mesh: the whole
+    global batch, alike on every rank; each rank takes its rows).  The
+    state's tensors are updated in place and returned in a new
+    ``TrainState``; ``metrics`` are device tensors (reading one waits for
+    the step)."""
+    if mesh is not None and tcfg.compression != "none":
         raise NotImplementedError(
-            "multi-GPU training is not ported (ROADMAP.md queue 1, the "
-            "multi-GPU item): train on one device")
+            "gradient compression on a mesh is not ported: its stochastic "
+            "rounding draws per leaf, not per shard")
 
     def grads_of(params, batch):
         """(loss, metrics, grads): grads in float32, ``None`` for a leaf the
@@ -100,7 +172,7 @@ def make_train_step(
         gives them)."""
         leaves = M._tree_map(lambda _, a: a.detach().requires_grad_(), params)
         loss, metrics = M.loss_fn(
-            cfg, leaves, batch, use_kernels=tcfg.use_kernels,
+            cfg, leaves, batch, mesh=mesh, use_kernels=tcfg.use_kernels,
             compute_dtype=tcfg.compute_dtype, remat=tcfg.remat,
             z_loss=tcfg.z_loss,
         )
@@ -109,14 +181,47 @@ def make_train_step(
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 M._tree_map(lambda *_: next(gs), leaves))
 
+    def gathered(state: TrainState):
+        """The parameters in full on this rank (DTensor's all-gather)."""
+        return M._tree_map(lambda _, a: a.full_tensor(), state.params)
+
+    def reduced(grads, state: TrainState, axes):
+        """Each rank's full gradients, averaged over the batch axes and
+        placed as their parameters are (a reduce-scatter).  Along
+        ``"model"`` every rank holds the same gradient, but for the experts
+        of an expert-parallel MoE, where each rank holds its own experts'
+        rows: those are summed."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        def partial(experts):
+            return [Partial("avg") if name in axes
+                    else Partial("sum") if name == "model" and experts
+                    else Replicate() for name in mesh.mesh_dim_names]
+
+        def place(path, g):
+            if g is None:
+                return None
+            p = tree_get(state.params, path)
+            experts = (path[-1] in ("w_gate", "w_up", "w_down")
+                       and p.ndim - (path[0] == "groups") == 3)
+            return DTensor.from_local(g, mesh, partial(experts)).redistribute(
+                mesh, p.placements)
+        return M._tree_map(place, grads)
+
     def train_step(state: TrainState, batch):
+        axes = ()
+        params = state.params
+        if mesh is not None:
+            batch, axes = _local_rows(batch, mesh)
+            params = gathered(state)
         k = tcfg.microbatches
         if k > 1:
             parts = {name: a.reshape((k, a.shape[0] // k) + a.shape[1:])
                      for name, a in batch.items()}
-            grads, loss = None, torch.zeros((), device=state.step.device)
+            grads = None
+            loss = torch.zeros((), device=tree_leaves(params)[0].device)
             for i in range(k):
-                l, metrics, g = grads_of(state.params,
+                l, metrics, g = grads_of(params,
                                          {n: a[i] for n, a in parts.items()})
                 loss = loss + l
                 grads = g if grads is None else M._tree_map(
@@ -125,7 +230,19 @@ def make_train_step(
             grads = M._tree_map(lambda _, a: a if a is None else a / k, grads)
             loss = loss / k
         else:
-            loss, metrics, grads = grads_of(state.params, batch)
+            loss, metrics, grads = grads_of(params, batch)
+        if mesh is not None:
+            from ..models.sharding import mean_over, sum_over
+
+            grads = reduced(grads, state, axes)
+            # the global batch's loss: every shard holds as many tokens
+            loss = mean_over(loss, mesh, axes)
+            tokens = metrics["tokens"]
+            for a in axes:
+                tokens = sum_over(tokens, mesh, a)
+            metrics = dict(metrics, ce=mean_over(metrics["ce"], mesh, axes),
+                           z_loss=mean_over(metrics["z_loss"], mesh, axes),
+                           tokens=tokens)
 
         rng, seed = _split(state.rng)
         residual = state.residual

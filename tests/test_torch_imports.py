@@ -62,7 +62,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     for name in ("train.optim", "train.compression", "train.train_step",
                  "train.checkpoint", "data.pipeline", "launch.train",
                  "core.pipeline", "core.topology", "analysis.audit",
-                 "analysis.__main__"):
+                 "analysis.__main__", "core.collective_plan", "core.moe_plan",
+                 "models.sharding", "launch.mesh",
+                 "train.collective_schedule"):
         assert f"repro_torch.{name}" in modules
     script = f"""
 import importlib, importlib.abc, sys
@@ -99,7 +101,9 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                  ROOT / "examples" /
+                                  "port_plan_multipod_training.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_repro_import(path):
@@ -233,3 +237,53 @@ def test_schedule_and_online_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry(None)
     assert entry("cpu") is not None
+
+
+def _plan_cross_pod_reduction(device):
+    from repro_torch.core.collective_plan import plan_cross_pod_reduction
+
+    return plan_cross_pod_reduction(1000.0, [6400, 1600], n_elements=1 << 12,
+                                    n_restarts=2, steps=3, device=device)
+
+
+def _plan_moe_dispatch(device):
+    from repro_torch.core.moe_plan import plan_moe_dispatch
+
+    return plan_moe_dispatch(64.0, 2, [0, 1], [0, 1], n_restarts=2, steps=3,
+                             device=device)
+
+
+@pytest.mark.parametrize("entry", [_plan_cross_pod_reduction,
+                                   _plan_moe_dispatch],
+                         ids=lambda f: f.__name__.lstrip("_"))
+def test_training_planners_raise_without_cuda(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry(None)
+    assert entry("cpu") is not None
+
+
+def test_example_runs_without_jax(tmp_path):
+    """The port's multi-pod planning example runs on the CPU with jax and
+    the reference blocked (at a cut number of restarts and steps)."""
+    script = f"""
+import importlib.abc, runpy, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {BLOCKED!r}:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.argv = ["port_plan_multipod_training.py", "--device", "cpu",
+            "--restarts", "2", "--steps", "20"]
+runpy.run_path({str(ROOT / "examples" / "port_plan_multipod_training.py")!r},
+               run_name="__main__")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    assert "hierarchical all-reduce" in proc.stdout
+    assert "MoE dispatch" in proc.stdout

@@ -486,10 +486,25 @@ def test_router_ties_follow_jax_top_k(dtype, top_k):
 
 
 def test_moe_fwd_with_a_mesh_raises():
+    """A mesh without a ``"model"`` dim takes the one-device path, as the
+    reference's does; one with it runs expert parallel, whose collectives
+    need the process group the mesh was built on, and raise without one
+    (``tests/test_torch_multidevice.py`` runs the path on gloo worlds)."""
+    import types
+
     rcfg, pcfg = _granite_cfgs()
     _, pp = _moe_params(rcfg, 23)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 11"):
-        L.moe_fwd(pcfg, pp, torch.zeros(1, 2, pcfg.d_model), mesh=object())
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (1, 4, pcfg.d_model)).astype(np.float32))
+    want = L.moe_fwd(pcfg, pp, x)
+    got = L.moe_fwd(pcfg, pp, x, mesh=types.SimpleNamespace(
+        mesh_dim_names=("data",)))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    no_group = types.SimpleNamespace(
+        mesh_dim_names=("data", "model"), size=lambda dim: 1,
+        get_local_rank=lambda axis: 0, get_group=lambda axis: None)
+    with pytest.raises((RuntimeError, ValueError), match="process group"):
+        L.moe_fwd(pcfg, pp, x, mesh=no_group)
 
 
 def test_lm_params_from_numpy_takes_granites_tree():

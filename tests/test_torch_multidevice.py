@@ -1,0 +1,412 @@
+"""The port's multi-device paths against the reference, on gloo worlds.
+
+The targets of ``tests/test_multidevice.py`` but its dry run: expert-
+parallel MoE against one device, the hierarchical all-reduce against a
+plain sum, an elastic checkpoint reshard, and the launcher's ``--mesh``.
+Each case spawns a world of 4 processes (a 2×2 mesh), each running torch
+on one thread, that meets through a ``file://`` rendezvous under
+``tmp_path`` (no TCP port, so that test workers run side by side), under a
+timeout of its own.  The world's processes import neither jax nor the
+reference: what a rank needs of the reference (weights, outputs) this
+process computes and writes to ``tmp_path`` first.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD, TIMEOUT_S = 4, 120
+CPU = torch.device("cpu")
+
+_PREAMBLE = """
+import os, sys, json
+import numpy as np, torch, torch.distributed as dist
+torch.set_num_threads(1)
+RANK = int(os.environ["RANK"])
+def join():
+    dist.init_process_group("gloo", init_method=os.environ["INIT"],
+                            rank=RANK, world_size=int(os.environ["WORLD_SIZE"]))
+"""
+
+
+def run_world(tmp_path, body: str, world: int = WORLD):
+    """Run ``body`` in ``world`` processes (``RANK``, ``WORLD_SIZE`` and a
+    ``file://`` rendezvous in ``INIT``); each must exit 0.  Returns each
+    rank's standard output."""
+    code = _PREAMBLE + textwrap.dedent(body)
+    store = tmp_path / "rendezvous"
+    env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"),
+               WORLD_SIZE=str(world), INIT=f"file://{store}",
+               OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", code],
+                              env=dict(env, RANK=str(r)), cwd=str(tmp_path),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=TIMEOUT_S)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (rc, out, err) in enumerate(outs):
+        assert rc == 0, f"rank {r}: rc {rc}\nSTDOUT:\n{out}\nSTDERR:\n{err}"
+    return [out for _, out, _ in outs]
+
+
+# ---------------------------------------------------------------------------
+# (a) expert-parallel MoE
+# ---------------------------------------------------------------------------
+
+def _granite(capacity_factor=8.0):
+    import dataclasses
+
+    from repro.configs import ARCHS as RA
+
+    return dataclasses.replace(RA["granite-moe-3b-a800m"].reduced(),
+                               capacity_factor=capacity_factor)
+
+
+def _moe_plan_params(rp, cfg):
+    """The reference's MoE parameters with a dispatch plan loaded: the
+    experts in 4 groups of 2 (2 groups a pod), each expert taking its
+    group's router bias and capacity factor."""
+    from repro_torch.core.moe_plan import plan_moe_dispatch
+
+    plan = plan_moe_dispatch(
+        tokens_mb_per_shard=64.0, n_token_shards=4, group_pod=[0, 0, 1, 1],
+        shard_pod=[0, 0, 1, 1], top_k=cfg.top_k,
+        expert_flops_rate_mbps=[25000, 25000, 8000, 8000],
+        n_restarts=4, steps=150, device="cpu")
+    per = cfg.n_experts // 4
+    bias = np.repeat(plan.router_bias, per).astype(np.float32)
+    cap = np.repeat(plan.capacity_factor, per).astype(np.float32)
+    assert not np.allclose(cap, 1.0) and not np.allclose(bias, 0.0)
+    return dict(rp, plan_bias=jnp.asarray(bias), plan_capacity=jnp.asarray(cap))
+
+
+@pytest.mark.parametrize("planned", [False, True], ids=["identity", "plan"])
+def test_moe_expert_parallel_matches_one_device(tmp_path, planned):
+    """``moe_fwd(mesh=)`` on a (data 2, model 2) mesh: each rank's tokens'
+    ``y`` against the reference's single-device ``moe_fwd`` at atol/rtol
+    2e-4, ``aux`` at rtol 1e-4 (the reference's own bar); once with the
+    identity plan, once with the router bias and capacities of a
+    ``plan_moe_dispatch`` plan."""
+    from repro.models import layers as RL
+
+    cfg = _granite()
+    rp = RL.init_moe(cfg, jax.random.PRNGKey(0), tp=2)
+    if planned:
+        rp = _moe_plan_params(rp, cfg)
+    x = np.random.default_rng(1).standard_normal(
+        (4, 16, cfg.d_model)).astype(np.float32)
+    y_ref, aux_ref = RL.moe_fwd(cfg, rp, jnp.asarray(x), mesh=None)
+    np.savez(tmp_path / "moe.npz", x=x,
+             **{k: np.asarray(v) for k, v in rp.items()})
+    outs = run_world(tmp_path, """
+        import dataclasses
+        from repro_torch.configs import ARCHS
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import layers as L
+        join()
+        cfg = dataclasses.replace(ARCHS["granite-moe-3b-a800m"].reduced(),
+                                  capacity_factor=8.0)
+        z = np.load("moe.npz")
+        p = {k: torch.from_numpy(z[k]) for k in z.files if k != "x"}
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        d = mesh.get_local_rank("data")
+        x = torch.from_numpy(z["x"])[2 * d:2 * d + 2]
+        y, aux = L.moe_fwd(cfg, p, x, mesh=mesh)
+        np.save(f"y{RANK}.npy", y.numpy())
+        print("AUX", float(aux))
+        dist.destroy_process_group()
+    """)
+    for r, out in enumerate(outs):
+        d = r // 2  # init_device_mesh lays ranks out row-major
+        np.testing.assert_allclose(np.load(tmp_path / f"y{r}.npy"),
+                                   np.asarray(y_ref)[2 * d:2 * d + 2],
+                                   atol=2e-4, rtol=2e-4)
+        aux = float(out.split("AUX")[1].split()[0])
+        np.testing.assert_allclose(aux, float(aux_ref), rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# (b) the hierarchical all-reduce
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("planned", [False, True], ids=["uniform", "plan"])
+def test_hierarchical_allreduce_matches_the_sum(tmp_path, planned):
+    """On (pod 2, data 2) every rank's tree comes back as 4× the tree
+    (``mean=False``) to rtol 1e-6, with or without the segment sizes of a
+    ``plan_cross_pod_reduction`` plan (which the schedule takes and does
+    not read, as the reference)."""
+    seg = None
+    if planned:
+        from repro_torch.core.collective_plan import plan_cross_pod_reduction
+
+        rp = plan_cross_pod_reduction(grad_mb=4000.0,
+                                      pod_dcn_bw_mbps=[6400, 1600],
+                                      n_elements=1007, block=16,
+                                      n_restarts=4, steps=150, device="cpu")
+        assert int(rp.segment_sizes.sum()) == 1007
+        seg = [int(v) for v in rp.segment_sizes]
+    run_world(tmp_path, f"""
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.train.collective_schedule import (
+            flat_size, hierarchical_allreduce)
+        join()
+        mesh = make_mesh((2, 2), ("pod", "data"), "cpu")
+        tree = {{"a": torch.arange(1000, dtype=torch.float32).reshape(10, 100),
+                 "b": torch.ones(7)}}
+        assert flat_size(tree) == 1007
+        got = hierarchical_allreduce(tree, mesh, segment_sizes={seg!r},
+                                     mean=False)
+        np.testing.assert_allclose(got["a"].numpy(), 4.0 * tree["a"].numpy(),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(got["b"].numpy(), 4.0, rtol=1e-6)
+        mean = hierarchical_allreduce(tree, mesh)
+        np.testing.assert_allclose(mean["a"].numpy(), tree["a"].numpy(),
+                                   rtol=1e-6)
+        dist.destroy_process_group()
+    """)
+
+
+# ---------------------------------------------------------------------------
+# (c) elastic checkpoint reshard
+# ---------------------------------------------------------------------------
+
+def _qwen_tp2():
+    from repro_torch.configs import ARCHS, padded_for_tp
+
+    return padded_for_tp(ARCHS["qwen3-1.7b"].reduced(), 2)
+
+
+def test_elastic_checkpoint_reshard(tmp_path):
+    """A qwen3 state sharded on a 2×2 mesh (FSDP × TP) is saved; it is
+    restored onto a (data 4, model 1) mesh in the same world, and in this
+    process on one CPU device, and both are bitwise the unsharded
+    ``init``."""
+    from repro_torch.models import model as M
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.train_step import init_state
+
+    ckpt = tmp_path / "ckpt"
+    run_world(tmp_path, f"""
+        from repro_torch.configs import ARCHS, padded_for_tp
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import model as M
+        from repro_torch.models.sharding import DEFAULT_RULES, axis_rules
+        from repro_torch.train.checkpoint import CheckpointManager
+        from repro_torch.train.train_step import (
+            init_state, place_state, state_shardings)
+        join()
+        cfg = padded_for_tp(ARCHS["qwen3-1.7b"].reduced(), 2)
+        gen = torch.Generator().manual_seed(0)
+        full = init_state(cfg, M.init(cfg, gen, device="cpu", tp=2))
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        with axis_rules(mesh, DEFAULT_RULES):
+            sh = state_shardings(cfg, full, mesh)
+        state = place_state(full, sh)
+        shards = [a for a in state.params["groups"]["blk0"]["mixer"].values()]
+        assert any(a.to_local().shape != a.shape for a in shards)
+        mgr = CheckpointManager({str(ckpt)!r}, keep=2)
+        mgr.save(5, state)
+        dist.barrier()
+        other = make_mesh((4, 1), ("data", "model"), "cpu")
+        with axis_rules(other, DEFAULT_RULES):
+            sh2 = state_shardings(cfg, full, other)
+        back, _, step = mgr.restore(None, full, sh2)
+        assert step == 5
+        got, want = [], []
+        M._tree_map(lambda _, a: got.append(a), back.params)
+        M._tree_map(lambda _, a: want.append(a), full.params)
+        for a, b in zip(got, want):
+            assert torch.equal(a.full_tensor(), b)
+        dist.destroy_process_group()
+    """)
+    cfg = _qwen_tp2()
+    gen = torch.Generator().manual_seed(0)
+    params = M.init(cfg, gen, device=CPU, tp=2)
+    like = init_state(cfg, M.init(cfg, torch.Generator().manual_seed(1),
+                                  device=CPU, tp=2))
+    restored, _, step = CheckpointManager(str(ckpt), keep=2).restore(None,
+                                                                     like)
+    assert step == 5
+    got, want = [], []
+    M._tree_map(lambda _, a: got.append(a), restored.params)
+    M._tree_map(lambda _, a: want.append(a), params)
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# (d) the launcher
+# ---------------------------------------------------------------------------
+
+_LAUNCH = ["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
+           "--steps", "3", "--batch", "4", "--seq", "32", "--log-every", "1",
+           "--warmup", "1"]
+
+
+def _recording(losses):
+    def wrap(step_fn):
+        def step(state, batch):
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+        return step
+    return wrap
+
+
+def test_launcher_mesh_matches_one_device(tmp_path):
+    """``launch.train --mesh 2x2`` on four gloo processes gives the losses
+    of the run without ``--mesh`` (held to the reference by
+    ``tests/test_torch_train.py``) to 1e-5 relative, and its last
+    checkpoint (gathered from the shards, written by rank 0) the same
+    parameters to 1e-5 of each leaf's largest entry."""
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    want = []
+    state = T.main(_LAUNCH, wrap_step=_recording(want))
+    ckpt = tmp_path / "ckpt"
+    run_world(tmp_path, f"""
+        from repro_torch.launch import train as T
+        losses = []
+        def wrap(step_fn):
+            def step(state, batch):
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+                return state, metrics
+            return step
+        T.main({_LAUNCH!r} + ["--mesh", "2x2", "--init-method",
+                              os.environ["INIT"], "--ckpt-dir", {str(ckpt)!r}],
+               wrap_step=wrap)
+        json.dump(losses, open(f"losses{{RANK}}.json", "w"))
+    """)
+    for r in range(WORLD):
+        got = json.load(open(tmp_path / f"losses{r}.json"))
+        assert len(got) == len(want) == 3
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    saved, _, step = CheckpointManager(str(ckpt)).restore(None, state)
+    assert step == 3
+
+    def check(path, a):
+        b = M._tree_map(lambda _, v: v, state.params)
+        for key in path:
+            b = b[key]
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+    M._tree_map(check, saved.params)
+
+
+# ---------------------------------------------------------------------------
+# (e) an expert-parallel MoE train step
+# ---------------------------------------------------------------------------
+
+_MOE_STEP = """
+import dataclasses
+from repro_torch.configs import ARCHS, padded_for_tp
+from repro_torch.models import model as M
+from repro_torch.train.train_step import TrainConfig, init_state, make_train_step
+cfg = padded_for_tp(dataclasses.replace(
+    ARCHS["granite-moe-3b-a800m"].reduced(), capacity_factor=8.0), 2)
+tcfg = TrainConfig(compute_dtype=torch.float32, remat=False)
+toks = np.random.default_rng(3).integers(0, cfg.vocab, size=(4, 17))
+batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+         "labels": torch.from_numpy(toks[:, 1:])}
+state = init_state(cfg, M.init(cfg, torch.Generator().manual_seed(0),
+                               device="cpu", tp=2))
+"""
+
+
+def test_moe_train_step_on_a_mesh_matches_one_device(tmp_path):
+    """Two float32 train steps of the reduced Granite-MoE (capacity factor
+    8: no token dropped on either side, whose capacities differ, as the
+    reference's do) on a 2×2 mesh, experts parallel over ``model``, give
+    the single-device losses and gradient norms to 1e-5 relative and its
+    parameters to 1e-5 of each leaf's largest entry: the expert-parallel
+    backward is the gradient of the same loss (the norm is taken before
+    clipping, so a gradient scaled by a mesh dim's size shows there, where
+    AdamW's update would hide it)."""
+    scope = {"torch": torch, "np": np}
+    exec(_MOE_STEP, scope)
+    step = scope["make_train_step"](scope["cfg"], scope["tcfg"])
+    state, want = scope["state"], []
+    for _ in range(2):
+        state, metrics = step(state, scope["batch"])
+        want.append([float(metrics["loss"]), float(metrics["grad_norm"])])
+    run_world(tmp_path, _MOE_STEP + """
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.sharding import DEFAULT_RULES, axis_rules
+from repro_torch.train.train_step import place_state, state_shardings
+join()
+mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+with axis_rules(mesh, DEFAULT_RULES):
+    state = place_state(state, state_shardings(cfg, state, mesh))
+    step = make_train_step(cfg, tcfg, mesh=mesh)
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, batch)
+        losses.append([float(metrics["loss"]),
+                       float(metrics["grad_norm"].full_tensor())])
+final = {}
+M._tree_map(lambda path, a: final.__setitem__("/".join(path),
+                                              a.full_tensor().numpy()),
+            state.params)
+if RANK == 0:
+    np.savez("final.npz", **final)
+json.dump(losses, open(f"losses{RANK}.json", "w"))
+dist.destroy_process_group()
+""")
+    for r in range(WORLD):
+        np.testing.assert_allclose(
+            json.load(open(tmp_path / f"losses{r}.json")), want, rtol=1e-5)
+    z = np.load(tmp_path / "final.npz")
+    from repro_torch.models import model as M
+
+    def check(path, a):
+        np.testing.assert_allclose(z["/".join(path)], a.numpy(), rtol=0,
+                                   atol=1e-5 * float(a.abs().max()))
+    M._tree_map(check, state.params)
+
+
+# ---------------------------------------------------------------------------
+# (f) the logical-axis annotation on a DTensor
+# ---------------------------------------------------------------------------
+
+def test_shard_redistributes_a_dtensor(tmp_path):
+    """Inside ``axis_rules`` on a 2×2 mesh, ``shard`` lays a DTensor out as
+    the rules say (the batch over ``data``, heads over ``model``; the
+    ``pod`` axis the mesh lacks dropped), keeps its values, and leaves a
+    plain tensor as it is."""
+    run_world(tmp_path, """
+        from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.sharding import DEFAULT_RULES, axis_rules, shard
+        join()
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        full = torch.arange(4 * 6 * 8 * 2, dtype=torch.float32).reshape(4, 6, 8, 2)
+        x = distribute_tensor(full, mesh, [Replicate(), Replicate()])
+        with axis_rules(mesh, DEFAULT_RULES):
+            y = shard(x, "act_batch", "act_heads", "act_seq", None)
+            assert shard(full, "act_batch") is full
+            assert shard(y, "act_batch", "act_heads", "act_seq", None) is y
+        assert tuple(y.placements) == (Shard(0), Shard(1)), y.placements
+        assert y.to_local().shape == (2, 3, 8, 2)
+        assert torch.equal(y.full_tensor(), full)
+        dist.destroy_process_group()
+    """)

@@ -519,13 +519,22 @@ def test_launcher_resumes_from_the_newest_committed_step(qwen, tmp_path,
         assert fed[0][k].tobytes() == want[k].tobytes(), k
 
 
-def test_launcher_geo_ingest_and_mesh(tmp_path, capsys):
+def test_launcher_geo_ingest_and_mesh(tmp_path, capsys, monkeypatch):
     launch_train.main(["--arch", QWEN, "--reduced", "--device", "cpu",
                        "--steps", "1", "--batch", "2", "--seq", "8",
                        "--geo-ingest", "--compression", "int8"])
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("[ingest] planned=") and "myopic-push=" in out[0]
     assert out[1].startswith("step     1 loss=")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # --mesh joins a process group (here a world of one, through a file
+    # rendezvous) and refuses a mesh that is not the world's size, leaving
+    # the group it started
+    import torch.distributed as dist
+
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(ValueError, match="needs 4 processes"):
         launch_train.main(["--arch", QWEN, "--reduced", "--device", "cpu",
-                           "--mesh", "2x2"])
+                           "--mesh", "2x2", "--init-method",
+                           f"file://{tmp_path / 'rendezvous'}"])
+    assert not dist.is_initialized()
