@@ -191,6 +191,23 @@ Phases:
     same losses to 1e-5, warm step walls of both.  The LM kernels' counts
     are zeroed before phase 14 and must equal the launches its prefills
     made.
+15. The dry run (``repro_torch.launch.dryrun``).  15a: ``run_cell`` of
+    Qwen3-1.7B ``train_4k``, Granite-MoE ``prefill_32k`` and Falcon-Mamba
+    ``decode_32k`` on the 16 x 16 mesh and Llama4-Scout ``train_4k`` on
+    2 x 16 x 16, each on a fake world of 256 or 512 ranks with stand-ins
+    on the meta device: every trace finishes, every count is finite,
+    collective bytes above 0 in every cell whose layout communicates (a
+    train step, an MoE) and 0 in a dense model's decode, and the card's
+    allocated bytes the same before and after; each cell's per-device
+    bytes, flops, collective bytes by kind, whether it fits in 80 GB and
+    its wall are printed.  On a one-rank NCCL world: 15b phase 14d's
+    Qwen3 train step (depth 4, 4 x 2048 tokens, bf16, remat) and phase
+    14b's Granite prefill (depth 4, 3000 tokens, bf16), each as a dry run
+    and for real on the card without kernels: the dry run's flops equal
+    ``FlopCounterMode``'s over the real call, its peak within 10% of
+    ``max_memory_allocated`` from a reset; 15c ``launch.train --mesh 1x1
+    --compression int8`` against no mesh, 3 steps of 14d's configuration:
+    the same losses to 1e-5.
 
 After the phases, one ``{"kernels": [...]}`` line lists every kernel; the
 scans' entries time the float32 prefill inputs the bf16 models now give
@@ -401,7 +418,8 @@ def time_queued_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
-def kernel_device_ms(fn, names, calls: int = 20, recorded_per_call=None):
+def kernel_device_ms(fn, names, calls: int = 20, recorded_per_call=None,
+                     sessions: int = 3):
     """Mean device time of one call of ``fn``, from ``torch.profiler`` over
     ``calls`` calls: for each kernel name in ``names`` (a substring of the
     CUDA kernels' names; one string or several, for a call that launches
@@ -409,25 +427,43 @@ def kernel_device_ms(fn, names, calls: int = 20, recorded_per_call=None):
     the profiler recorded, summed over the names it recorded; ``None``
     where it records no device time.  Where ``recorded_per_call`` is a
     dict, it gets each name's launches the profiler recorded, over
-    ``calls``; it stays empty where the profiler cannot trace."""
+    ``calls``; it stays empty where the profiler cannot trace.
+
+    Each session traces a warm-up step of ``calls`` calls whose events it
+    drops before the ``calls`` it keeps: a session started without one
+    missed the first launches after it enabled its tracing (on an H100 it
+    recorded 3 or 4 of 5 calls' launches, and once none).  A session that
+    records no launch of any name is made again, up to ``sessions`` in
+    all."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     names = (names,) if isinstance(names, str) else tuple(names)
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as exc:  # the profiler cannot trace this machine
-        print(f"  profiler unavailable: {exc}")
-        return None
+    for session in range(1, sessions + 1):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                for _ in range(2):  # the warm-up step, then the kept one
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+        except RuntimeError as exc:  # the profiler cannot trace this machine
+            print(f"  profiler unavailable: {exc}")
+            return None
+        events = prof.key_averages()
+        if any(name in ev.key for ev in events for name in names):
+            break
+        print(f"  profiler session {session} of {sessions} recorded no launch "
+              f"of {' or '.join(names)} in {calls} calls")
     per_call = None
     for name in names:
         total_us, recorded = 0.0, 0
-        for ev in prof.key_averages():
+        for ev in events:
             if name in ev.key:
                 total_us += (getattr(ev, "device_time_total", None)
                              or getattr(ev, "cuda_time_total", 0.0))
@@ -1411,9 +1447,9 @@ def phase_lm_kernels(device, launches, lengths=(17, 2049, 3000), hq=16, dh=256,
               f"{queued!r} ms  plain {plain!r} ms  library none  bound "
               f"{bound!r} ms ({bound_by}); the wrapper's chunking: {n_chunks} "
               f"chunks of {chunk} steps; recorded launches a call {per_name}")
-        # the profiler may miss launches (on an H100 it recorded 3 or 4
-        # of 5 calls'): count the kernels it saw, and give its launches a
-        # call
+        # the profiler may miss launches (on an H100, before its sessions
+        # had a warm-up step, it recorded 3 or 4 of 5 calls'): count the
+        # kernels it saw, and give its launches a call
         times = {"ms": ms, "kernel_device_ms": dev_ms, "queued_ms": queued,
                  "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
                  "kernels_per_call": (summary > 0) + (output > 0),
@@ -3640,43 +3676,47 @@ def phase_allreduce_mesh(device, mesh, arch=TRAIN_ARCH, cfg=None):
 
 def phase_train_mesh(device, arch=TRAIN_ARCH, depth=MESH_DEPTH,
                      steps=MESH_TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                     reduced=False):
-    """Phase 14d: ``launch.train --mesh 1x1`` against the run without a
-    mesh, ``arch`` at full width and depth ``depth``: the same losses."""
+                     reduced=False, extra=(), phase="14d"):
+    """Phase 14d (and 15c, with ``extra`` = ``--compression int8``):
+    ``launch.train --mesh 1x1`` against the run without a mesh, ``arch``
+    at full width and depth ``depth``, both with the flags ``extra``: the
+    same losses."""
     import dataclasses
 
     from repro_torch.launch import train as launch_train
 
-    print(f"== phase 14d: {arch} at full width and depth {depth} through "
-          f"launch.train, --mesh 1x1 against no mesh ({steps} AdamW steps of "
-          f"{batch} x {seq} tokens, bf16, remat)", flush=True)
+    print(f"== phase {phase}: {arch} at full width and depth {depth} through "
+          f"launch.train {' '.join(extra)}, --mesh 1x1 against no mesh "
+          f"({steps} AdamW steps of {batch} x {seq} tokens, bf16, remat)",
+          flush=True)
     real = launch_train.get_config
     launch_train.get_config = lambda name: dataclasses.replace(real(name),
                                                                n_layers=depth)
     runs = {}
     try:
-        for label, extra in (("no mesh", ()), ("--mesh 1x1", ("--mesh", "1x1"))):
+        for label, mesh in (("no mesh", ()), ("--mesh 1x1", ("--mesh", "1x1"))):
             records = []
             argv = _train_argv(arch, reduced, steps, batch, seq, "--dtype",
                                "bfloat16", "--remat", "--warmup", "1",
-                               "--device", str(device), *extra)
+                               "--device", str(device), *extra, *mesh)
             _, lines = _run_launcher(argv, records, device)
             check(lines[-1] == "[train] done" and len(records) == steps,
-                  f"14d {label}: {len(records)} steps, last line {lines[-1]!r}")
+                  f"{phase} {label}: {len(records)} steps, last line "
+                  f"{lines[-1]!r}")
             runs[label] = records
     finally:
         launch_train.get_config = real
     want = [r["loss"] for r in runs["no mesh"]]
     got = [r["loss"] for r in runs["--mesh 1x1"]]
     worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
-    check(worst <= MESH_LOSS_RTOL, f"14d: losses on the mesh {got} against "
-          f"{want} without, {worst} relative (over {MESH_LOSS_RTOL})")
+    check(worst <= MESH_LOSS_RTOL, f"{phase}: losses on the mesh {got} "
+          f"against {want} without, {worst} relative (over {MESH_LOSS_RTOL})")
     for label, records in runs.items():
         warm = [r["s"] for r in records[1:]]
-        print(f"14d {label}: losses {[r['loss'] for r in records]!r}; first "
-              f"step {records[0]['s']!r} s, warm steps {warm!r} s (median "
-              f"{statistics.median(warm)!r} s)")
-    print(f"14d: losses agree to {worst!r} relative")
+        print(f"{phase} {label}: losses {[r['loss'] for r in records]!r}; "
+              f"first step {records[0]['s']!r} s, warm steps {warm!r} s "
+              f"(median {statistics.median(warm)!r} s)")
+    print(f"{phase}: losses agree to {worst!r} relative")
 
 
 def phase_multidevice(device):
@@ -3702,6 +3742,230 @@ def phase_multidevice(device):
         leave()
     print(f"phase 14: {time.perf_counter() - t:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the dry run at the production meshes, held to the card
+# ---------------------------------------------------------------------------
+
+#: 15a's production cells: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", False),
+                ("granite-moe-3b-a800m", "prefill_32k", False),
+                ("falcon-mamba-7b", "decode_32k", False),
+                ("llama4-scout-17b-a16e", "train_4k", True))
+#: 15b: the dry run's peak against ``max_memory_allocated`` of the real step
+DRYRUN_MEM_RTOL = 0.10
+#: 15b's cells: phase 14d's Qwen3 step and phase 14b's Granite prefill
+DRYRUN_TRAIN = ("dryrun_train", TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, "train")
+DRYRUN_PREFILL = ("dryrun_prefill", GRANITE_ARCH, max(MESH_PROMPTS), 1,
+                  "prefill")
+
+
+def _finite_numbers(tree) -> bool:
+    import math
+
+    if isinstance(tree, dict):
+        return all(_finite_numbers(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_finite_numbers(v) for v in tree)
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        return math.isfinite(tree)
+    return True
+
+
+def _communicates(report, cfg) -> bool:
+    """Whether the port's layout has collectives in this cell: a train
+    step (all-gathers, reduce-scatters, the loss's means), or an MoE
+    model (its experts' outputs summed over ``"model"``).  A dense model's
+    prefill or decode runs each rank's rows alone."""
+    return report["kind"] == "train" or bool(cfg.n_experts)
+
+
+def phase_dryrun_production(device, cells=DRYRUN_CELLS, reduced=False):
+    """Phase 15a: ``launch.dryrun.run_cell`` of each cell at its production
+    mesh (a fake world of 256 or 512 ranks, stand-ins on the meta device,
+    ``device`` the card the step would run on): every trace finishes, every
+    count is finite, collectives wherever the port's layout has them, and
+    no byte is allocated on the card.  Whether each cell fits in one card
+    is printed, not checked.  Returns the reports."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import CARD_BYTES, COLLECTIVE_KINDS, run_cell
+
+    print("== phase 15a: the dry run at the production meshes, on stand-ins "
+          f"for {device}", flush=True)
+    on_card = device.type == "cuda"
+    before = torch.cuda.memory_allocated(device) if on_card else 0
+    reports = []
+    for arch, shape, multi_pod in cells:
+        t = time.perf_counter()
+        rep = run_cell(arch, shape, multi_pod, reduced=reduced, device=device)
+        wall = time.perf_counter() - t
+        label = f"15a {arch} {shape} {rep['mesh']}"
+        check(_finite_numbers(rep), f"{label}: a count is not finite")
+        coll = rep["collectives_per_device_bytes"]
+        cfg = get_config(arch)
+        if _communicates(rep, cfg):
+            check(coll["total"] > 0, f"{label}: no collective traced")
+        else:
+            check(coll["total"] == 0, f"{label}: {coll} where the layout "
+                  "has no collective")
+        print(f"{label}: per_device_bytes {rep['per_device_bytes']} "
+              f"({rep['per_device_bytes'] / 1e9!r} GB; arguments "
+              f"{rep['argument_size_in_bytes'] / 1e9!r} GB), fits in one "
+              f"card ({CARD_BYTES / 1e9:.0f} GB): {rep['fits_card']}; "
+              f"flops_per_device {rep['flops_per_device']} (the reference's "
+              f"analytic attention flops for the whole mesh "
+              f"{rep['attn_flops_total']!r}); collective bytes per device "
+              f"{ {k: coll[k] for k in COLLECTIVE_KINDS + ('total',)} } in "
+              f"{rep['collectives_per_device_count']}; "
+              f"{rep['ops_per_device']} ops traced in {rep['trace_s']} s, "
+              f"wall {wall:.1f} s", flush=True)
+        reports.append(rep)
+    after = torch.cuda.memory_allocated(device) if on_card else 0
+    check(after == before, f"15a: the dry run allocated {after - before} "
+          "bytes on the card")
+    print(f"15a: device memory allocated {before} bytes before the dry "
+          f"runs, {after} after")
+    return reports
+
+
+def _with_cell(name, arch, seq, batch, kind, depth, reduced=False):
+    """Register ``arch`` (``reduced``: its smoke config) at depth ``depth``
+    and the shape ``(seq, batch, kind)`` under ``name`` in the port's own
+    registries (this process only); returns the config."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, SHAPES, ShapeSpec, get_config
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
+                              n_layers=depth)
+    ARCHS[name] = cfg
+    SHAPES[name] = ShapeSpec(name, seq, batch, kind)
+    return cfg
+
+
+def _dry_against_real(device, mesh, label, name, run_real):
+    """Phase 15b, one cell: the dry run of ``name`` on ``mesh`` against
+    ``run_real()`` on the card from a reset of the peak (its flops counted
+    by ``FlopCounterMode``): the flops equal, the peak within
+    ``DRYRUN_MEM_RTOL``."""
+    import torch
+    from repro_torch.launch.dryrun import run_cell
+    from torch.utils.flop_counter import FlopCounterMode
+
+    dry = run_cell(name, name, False, mesh=mesh, device=device)
+    _sync(device)
+    base = torch.cuda.memory_allocated(device)
+    args = run_real(None)  # the real step's state, parameters and batch
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    counter = FlopCounterMode(display=False)
+    t = time.perf_counter()
+    with counter:
+        out = run_real(args)
+        _sync(device)
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(device) - base
+    del out, args
+    flops = counter.get_total_flops()
+    gap = abs(dry["per_device_bytes"] - peak) / peak
+    print(f"15b {label}: flops dry {dry['flops_per_device']} / real "
+          f"{flops} (gap {dry['flops_per_device'] - flops}); peak bytes "
+          f"dry {dry['per_device_bytes']} / real {peak} (max_memory_allocated"
+          f" from a reset, less the {base} bytes allocated before the step's "
+          f"arguments), gap {gap!r}; arguments dry "
+          f"{dry['argument_size_in_bytes']}; real step wall {wall!r} s, dry "
+          f"trace {dry['trace_s']} s", flush=True)
+    check(dry["flops_per_device"] == flops, f"15b {label}: flops differ")
+    check(gap <= DRYRUN_MEM_RTOL, f"15b {label}: the dry run's peak is "
+          f"{gap} from the card's (over {DRYRUN_MEM_RTOL})")
+    return {"flops_gap": dry["flops_per_device"] - flops, "memory_gap": gap}
+
+
+def phase_dryrun_vs_card(device, mesh, depth=MESH_DEPTH, train=DRYRUN_TRAIN,
+                         prefill=DRYRUN_PREFILL, reduced=False):
+    """Phase 15b: on ``mesh`` (one rank), phase 14d's Qwen3 train step and
+    phase 14b's Granite prefill at full width and depth ``depth``, each as
+    a dry run and for real on the card, plain PyTorch (``use_kernels``
+    off, as the dry run): equal flops, peaks within ``DRYRUN_MEM_RTOL``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import DEFAULT_RULES, axis_rules
+    from repro_torch.train.train_step import (TrainConfig, init_state,
+                                              make_train_step, place_state,
+                                              state_shardings)
+
+    print(f"== phase 15b: the dry run held to the card on a "
+          f"{_mesh_label(mesh)} mesh, depth {depth}", flush=True)
+    name, _, seq, batch, _ = train
+    cfg = _with_cell(*train, depth, reduced)
+    step = make_train_step(cfg, TrainConfig(compute_dtype=torch.bfloat16,
+                                            remat=True, use_kernels=False),
+                           mesh=mesh)
+    rng = np.random.default_rng(15)
+
+    def train_step(args):
+        if args is None:
+            gen = torch.Generator(device=device).manual_seed(15)
+            state = init_state(cfg, M.init(cfg, gen, device=device))
+            with axis_rules(mesh, DEFAULT_RULES):
+                state = place_state(state, state_shardings(cfg, state, mesh))
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                size=(batch, seq + 1)),
+                                   dtype=torch.int32, device=device)
+            return state, {"tokens": toks[:, :-1].contiguous(),
+                           "labels": toks[:, 1:].contiguous()}
+        with axis_rules(mesh, DEFAULT_RULES):
+            return step(*args)
+
+    gaps = {"train": _dry_against_real(device, mesh, f"{cfg.name} train step "
+                                       f"{batch} x {seq}", name, train_step)}
+    free_device_memory(device)
+    name, _, seq, batch, _ = prefill
+    gcfg = _with_cell(*prefill, depth, reduced)
+
+    def prefill_step(args):
+        if args is None:
+            gen = torch.Generator(device=device).manual_seed(16)
+            params = M.init(gcfg, gen, device=device, dtype=torch.bfloat16)
+            toks = torch.as_tensor(rng.integers(0, gcfg.vocab,
+                                                size=(batch, seq)),
+                                   dtype=torch.int32, device=device)
+            return params, {"tokens": toks}
+        with axis_rules(mesh, DEFAULT_RULES):
+            return M.prefill(gcfg, args[0], args[1], max_cache_len=seq,
+                             mesh=mesh)
+
+    gaps["prefill"] = _dry_against_real(device, mesh, f"{gcfg.name} prefill "
+                                        f"{batch} x {seq}", name, prefill_step)
+    free_device_memory(device)
+    return gaps
+
+
+def phase_dryrun(device):
+    """Phase 15: 15a the dry run at the production meshes; on a one-rank
+    NCCL world, 15b the dry run held to the card and 15c ``launch.train
+    --mesh 1x1 --compression int8`` against no mesh.  Returns 15a's
+    reports and 15b's gaps."""
+    from repro_torch.launch.mesh import make_mesh
+
+    t = time.perf_counter()
+    reports = phase_dryrun_production(device)
+    leave = one_rank_world(device)
+    try:
+        gaps = phase_dryrun_vs_card(device, make_mesh((1, 1),
+                                                      ("data", "model"),
+                                                      device.type))
+        phase_train_mesh(device, extra=("--compression", "int8"),
+                         phase="15c")
+        free_device_memory(device)
+    finally:
+        leave()
+    print(f"phase 15: {time.perf_counter() - t:.1f} s")
+    return reports, gaps
 
 
 def free_device_memory(device) -> None:
@@ -3774,6 +4038,8 @@ def main() -> None:
           and ep_launches["moe_dispatch"] > 0, f"phase 14 counted {counted} "
           f"launches, its prefills {ep_launches} expert parallel and "
           f"{one_launches} on one device")
+    free_device_memory(device)
+    phase_dryrun(device)
     moe["launches_by_path"]["expert parallel (14b)"] = ep_launches["moe_dispatch"]
     moe["launches"] += ep_launches["moe_dispatch"]
     segsum = entries[0]

@@ -10,8 +10,9 @@ versions can be run in turns in one chip call (parent, change, change,
 parent), each in a process of its own.  Phases: ``5`` serving
 RecurrentGemma-9B, ``6a`` its kernels against their plain versions, ``7``
 serving Falcon-Mamba-7B, ``8a`` ``mamba_scan`` against its plain version,
-``14`` the planner in multi-device training, after phase 1 (the card's
-name and power limit, and the kernels built).  Phases 6a and 8a run on
+``14`` the planner in multi-device training, ``15`` the dry run at the
+production meshes, held to the card, after phase 1 (the card's name and
+power limit, and the kernels built).  Phases 6a and 8a run on
 stand-in launch counts (they print their kernels-line entries).  Needs a
 CUDA card.
 """
@@ -23,7 +24,7 @@ from pathlib import Path
 
 ap = argparse.ArgumentParser()
 ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
-ap.add_argument("phases", nargs="+", choices=["5", "6a", "7", "8a", "14"])
+ap.add_argument("phases", nargs="+", choices=["5", "6a", "7", "8a", "14", "15"])
 args = ap.parse_args()
 tree = Path(args.tree).resolve()
 sys.path[:0] = [str(tree), str(tree / "src")]
@@ -52,8 +53,10 @@ for phase in args.phases:
         C.phase_serving(device, C.MAMBA_ARCH, fixed=C.MAMBA_PROMPTS, phase="7")
     elif phase == "8a":
         print(json.dumps(C.phase_mamba_kernel(device, stand_in), default=str))
-    else:
+    elif phase == "14":
         print(json.dumps(C.phase_multidevice(device), default=str))
+    else:
+        print(json.dumps(C.phase_dryrun(device)[1], default=str))
     C.free_device_memory(device)
     print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
 print(f"run_phases {args.phases} from {tree}: {time.perf_counter() - t0:.1f} s")

@@ -2,9 +2,10 @@
 
 ``get_config(name)`` — the exact published config; ``--arch <id>`` in the
 launchers resolves here.  The architecture files are the reference's with
-only their import line changed.  The dry-run's ``input_specs`` and
-``cache_specs`` (jax ``ShapeDtypeStruct`` stand-ins) wait for the launch
-item of the port.
+only their import line changed.  ``input_specs`` and ``cache_specs`` give
+the dry run's stand-ins for a shape's inputs and decode cache: tensors on
+the meta device, shapes and dtypes without storage (the reference's
+``ShapeDtypeStruct`` stand-ins).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import dataclasses
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.models.config import ArchConfig
 
@@ -26,8 +28,8 @@ from .recurrentgemma_9b import CONFIG as _rgemma
 from .falcon_mamba_7b import CONFIG as _fmamba
 from .musicgen_large import CONFIG as _musicgen
 
-__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "cells", "get_config",
-           "padded_for_tp", "shape_supported"]
+__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "cache_specs", "cells",
+           "get_config", "input_specs", "padded_for_tp", "shape_supported"]
 
 ARCHS: Dict[str, ArchConfig] = {
     c.name: c
@@ -113,3 +115,49 @@ def cells():
             if shape_supported(cfg, s):
                 out.append((a, s))
     return out
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: str,
+                dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of the given shape.
+
+    train:   {tokens|embeds, labels}
+    prefill: {tokens|embeds}
+    decode:  {tokens|embeds, positions} (+ cache, built separately by
+             ``cache_specs``)
+    """
+    spec = SHAPES[shape]
+    B, T = spec.global_batch, spec.seq_len
+    i32 = torch.int32
+
+    def text_or_embed(bt):
+        if cfg.frontend == "embed":
+            return {"embeds": _spec(bt + (cfg.d_model,), dtype)}
+        return {"tokens": _spec(bt, i32)}
+
+    if spec.kind == "train":
+        out = text_or_embed((B, T))
+        out["labels"] = _spec((B, T), i32)
+        return out
+    if spec.kind == "prefill":
+        return text_or_embed((B, T))
+    # decode: one new token against a cache of length seq_len
+    out = text_or_embed((B, 1))
+    out["positions"] = _spec((B, 1), i32)
+    return out
+
+
+def cache_specs(cfg: ArchConfig, shape: str,
+                dtype: torch.dtype = torch.bfloat16, kv_int8: bool = False):
+    """The decode cache of a decode shape on the meta device: the port's
+    ``init_cache`` without storage."""
+    from repro_torch.models import model as M
+
+    spec = SHAPES[shape]
+    assert spec.kind == "decode"
+    return M.init_cache(cfg, spec.global_batch, spec.seq_len, dtype,
+                        kv_int8=kv_int8, device="meta")

@@ -16,6 +16,17 @@ and hands the gradients back to DTensor as partial values averaged over
 the batch axes: redistributing them to the parameters' placements is the
 reduce-scatter, and AdamW then runs on the DTensors, DTensor's sharding
 propagation doing the reductions of the global gradient norm.
+
+With gradient compression on a mesh, the step compresses what one device
+compresses: the averaged global gradient of each leaf, whole.  The
+partial gradients are all-reduced to every rank (in place of the
+reduce-scatter), each residual is all-gathered, and every rank runs
+``ef_compress_tree`` over the full leaves with the generator seeded alike
+(so each leaf's per-row scales and noise are the one-device draws), then
+keeps its own shard of the result and of the new residual (a local
+slice).  Per step and rank that is an all-reduce of the float32
+gradients and an all-gather of the residuals, each the size of the
+parameters, where the uncompressed step reduce-scatters once.
 """
 from __future__ import annotations
 
@@ -161,11 +172,6 @@ def make_train_step(
     state's tensors are updated in place and returned in a new
     ``TrainState``; ``metrics`` are device tensors (reading one waits for
     the step)."""
-    if mesh is not None and tcfg.compression != "none":
-        raise NotImplementedError(
-            "gradient compression on a mesh is not ported: its stochastic "
-            "rounding draws per leaf, not per shard")
-
     def grads_of(params, batch):
         """(loss, metrics, grads): grads in float32, ``None`` for a leaf the
         loss does not reach (``adamw_update`` counts it as zeros, as jax
@@ -185,12 +191,13 @@ def make_train_step(
         """The parameters in full on this rank (DTensor's all-gather)."""
         return M._tree_map(lambda _, a: a.full_tensor(), state.params)
 
-    def reduced(grads, state: TrainState, axes):
+    def reduced(grads, state: TrainState, axes, whole=False):
         """Each rank's full gradients, averaged over the batch axes and
-        placed as their parameters are (a reduce-scatter).  Along
-        ``"model"`` every rank holds the same gradient, but for the experts
-        of an expert-parallel MoE, where each rank holds its own experts'
-        rows: those are summed."""
+        placed as their parameters are (a reduce-scatter), or replicated
+        on every rank (``whole``: an all-reduce).  Along ``"model"`` every
+        rank holds the same gradient, but for the experts of an
+        expert-parallel MoE, where each rank holds its own experts' rows:
+        those are summed."""
         from torch.distributed.tensor import DTensor, Partial, Replicate
 
         def partial(experts):
@@ -204,9 +211,29 @@ def make_train_step(
             p = tree_get(state.params, path)
             experts = (path[-1] in ("w_gate", "w_up", "w_down")
                        and p.ndim - (path[0] == "groups") == 3)
+            to = [Replicate()] * mesh.ndim if whole else p.placements
             return DTensor.from_local(g, mesh, partial(experts)).redistribute(
-                mesh, p.placements)
+                mesh, to)
         return M._tree_map(place, grads)
+
+    def compressed_on_mesh(grads, state: TrainState, gen):
+        """``ef_compress_tree`` over the whole averaged gradients (replicated
+        DTensors) and the whole residuals, alike on every rank; each rank
+        keeps its shards of both results."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        whole = M._tree_map(lambda _, g: g if g is None else g.to_local(),
+                            grads)
+        residual = M._tree_map(lambda _, r: r.full_tensor(), state.residual)
+        out, res = ef_compress_tree(whole, residual, gen,
+                                    kind=tcfg.compression)
+
+        def like(tree, ref):
+            # a replicated value's shard is a local slice: no communication
+            return M._tree_map(lambda path, a: DTensor.from_local(
+                a, mesh, [Replicate()] * mesh.ndim).redistribute(
+                    mesh, tree_get(ref, path).placements), tree)
+        return like(out, state.params), like(res, state.residual)
 
     def train_step(state: TrainState, batch):
         axes = ()
@@ -231,10 +258,11 @@ def make_train_step(
             loss = loss / k
         else:
             loss, metrics, grads = grads_of(params, batch)
+        compress = tcfg.compression != "none"
         if mesh is not None:
             from ..models.sharding import mean_over, sum_over
 
-            grads = reduced(grads, state, axes)
+            grads = reduced(grads, state, axes, whole=compress)
             # the global batch's loss: every shard holds as many tokens
             loss = mean_over(loss, mesh, axes)
             tokens = metrics["tokens"]
@@ -246,11 +274,14 @@ def make_train_step(
 
         rng, seed = _split(state.rng)
         residual = state.residual
-        if tcfg.compression != "none":
+        if compress:
             gen = torch.Generator(device=state.step.device)
             gen.manual_seed(seed)
-            grads, residual = ef_compress_tree(grads, residual, gen,
-                                               kind=tcfg.compression)
+            if mesh is None:
+                grads, residual = ef_compress_tree(grads, residual, gen,
+                                                   kind=tcfg.compression)
+            else:
+                grads, residual = compressed_on_mesh(grads, state, gen)
 
         params, opt, opt_metrics = adamw_update(
             tcfg.adamw, state.params, grads, state.opt, lr_fn

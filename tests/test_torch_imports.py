@@ -64,7 +64,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "core.pipeline", "core.topology", "analysis.audit",
                  "analysis.__main__", "core.collective_plan", "core.moe_plan",
                  "models.sharding", "launch.mesh",
-                 "train.collective_schedule"):
+                 "train.collective_schedule", "launch.analysis",
+                 "launch.dryrun"):
         assert f"repro_torch.{name}" in modules
     script = f"""
 import importlib, importlib.abc, sys
@@ -101,9 +102,8 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                  ROOT / "examples" /
-                                  "port_plan_multipod_training.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("port_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_repro_import(path):
@@ -287,3 +287,41 @@ runpy.run_path({str(ROOT / "examples" / "port_plan_multipod_training.py")!r},
     assert proc.returncode == 0, proc.stderr
     assert "hierarchical all-reduce" in proc.stdout
     assert "MoE dispatch" in proc.stdout
+
+
+@pytest.mark.parametrize("example,expect", [
+    ("port_quickstart.py", "end-to-end multi-phase plan reduces makespan"),
+    ("port_wordcount.py", "optimized plan beats the Hadoop-locality"),
+])
+def test_port_example_runs_without_jax(tmp_path, example, expect):
+    """The port's quickstart and word-count examples run on the CPU with
+    jax and the reference blocked."""
+    script = f"""
+import importlib.abc, runpy, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {BLOCKED!r}:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.argv = [{example!r}, "--device", "cpu"]
+runpy.run_path({str(ROOT / "examples" / example)!r}, run_name="__main__")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    assert expect in proc.stdout
+
+
+def test_dryrun_cli_raises_without_cuda(no_cuda, tmp_path):
+    """The dry run's ``--device`` defaults to the card, with no CPU
+    fallback."""
+    from repro_torch.launch import dryrun
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(["--arch", "qwen3-1.7b", "--shape", "train_4k",
+                     "--out", str(tmp_path)])

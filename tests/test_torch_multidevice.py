@@ -1,14 +1,15 @@
 """The port's multi-device paths against the reference, on gloo worlds.
 
-The targets of ``tests/test_multidevice.py`` but its dry run: expert-
-parallel MoE against one device, the hierarchical all-reduce against a
-plain sum, an elastic checkpoint reshard, and the launcher's ``--mesh``.
-Each case spawns a world of 4 processes (a 2×2 mesh), each running torch
-on one thread, that meets through a ``file://`` rendezvous under
-``tmp_path`` (no TCP port, so that test workers run side by side), under a
-timeout of its own.  The world's processes import neither jax nor the
-reference: what a rank needs of the reference (weights, outputs) this
-process computes and writes to ``tmp_path`` first.
+The targets of ``tests/test_multidevice.py``: expert-parallel MoE against
+one device, the hierarchical all-reduce against a plain sum, an elastic
+checkpoint reshard, the launcher's ``--mesh`` (also with gradient
+compression), and the dry run.  Each case spawns a world of 4 processes
+(a 2×2 mesh), each running torch on one thread, that meets through a
+``file://`` rendezvous under ``tmp_path`` (no TCP port, so that test
+workers run side by side), under a timeout of its own; a dry run's fake
+world is one process of its own.  The world's processes import neither
+jax nor the reference: what a rank needs of the reference (weights,
+outputs) this process computes and writes to ``tmp_path`` first.
 """
 import json
 import os
@@ -313,6 +314,51 @@ def test_launcher_mesh_matches_one_device(tmp_path):
     M._tree_map(check, saved.params)
 
 
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_launcher_mesh_compression_matches_one_device(tmp_path, kind):
+    """``launch.train --mesh 2x2 --compression int8|bf16`` (it raised before
+    the mesh step compressed) gives the losses of the one-device run with
+    the same seed to 1e-5 relative, and the same parameters after three
+    steps to 1e-5 of each leaf's largest entry: the mesh compresses each
+    leaf's whole averaged gradient with the one-device draws."""
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    argv = _LAUNCH + ["--compression", kind]
+    want = []
+    state = T.main(argv, wrap_step=_recording(want))
+    ckpt = tmp_path / "ckpt"
+    run_world(tmp_path, f"""
+        from repro_torch.launch import train as T
+        losses = []
+        def wrap(step_fn):
+            def step(state, batch):
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+                return state, metrics
+            return step
+        T.main({argv!r} + ["--mesh", "2x2", "--init-method",
+                           os.environ["INIT"], "--ckpt-dir", {str(ckpt)!r}],
+               wrap_step=wrap)
+        json.dump(losses, open(f"losses{{RANK}}.json", "w"))
+    """)
+    for r in range(WORLD):
+        got = json.load(open(tmp_path / f"losses{r}.json"))
+        assert len(got) == len(want) == 3
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    saved, _, step = CheckpointManager(str(ckpt)).restore(None, state)
+    assert step == 3
+
+    def check(path, a):
+        b = M._tree_map(lambda _, v: v, state.params)
+        for key in path:
+            b = b[key]
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+    M._tree_map(check, saved.params)
+
+
 # ---------------------------------------------------------------------------
 # (e) an expert-parallel MoE train step
 # ---------------------------------------------------------------------------
@@ -410,3 +456,211 @@ def test_shard_redistributes_a_dtensor(tmp_path):
         assert torch.equal(y.full_tensor(), full)
         dist.destroy_process_group()
     """)
+
+
+# ---------------------------------------------------------------------------
+# (g) the dry run on fake worlds, held to real ones
+# ---------------------------------------------------------------------------
+
+def run_fake(tmp_path, body: str) -> str:
+    """Run ``body`` in one process (the fake worlds it starts live there);
+    returns its standard output."""
+    code = "import json, torch\ntorch.set_num_threads(1)\n" + \
+        textwrap.dedent(body)
+    env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          cwd=str(tmp_path), capture_output=True, text=True,
+                          timeout=TIMEOUT_S)
+    assert proc.returncode == 0, f"STDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}"
+    return proc.stdout
+
+
+#: the reference report's keys whose meaning carries over
+CARRIED_KEYS = ("arch", "shape", "mesh", "n_devices", "kind", "model_params",
+                "model_active_params", "padded_params",
+                "padded_active_params", "attn_flops_total", "variant",
+                "microbatches", "argument_size_in_bytes",
+                "output_size_in_bytes", "per_device_bytes",
+                "collectives_per_device_bytes")
+
+
+#: the reference test's dry-run cells (``tests/test_multidevice.py``)
+DRYRUN_CELLS = [("qwen3-1.7b", "train_4k"),
+                ("granite-moe-3b-a800m", "train_4k"),
+                ("falcon-mamba-7b", "decode_32k")]
+
+
+@pytest.fixture(scope="module")
+def fake_world_reports(tmp_path_factory):
+    """``run_cell`` of each of ``DRYRUN_CELLS`` on a fake 2×4 world (reduced
+    configs, ``--device cpu``), one world after the other in one process;
+    each world must be gone after its cell."""
+    out = run_fake(tmp_path_factory.mktemp("dryrun"), f"""
+        import torch.distributed as dist
+        from repro_torch.launch.dryrun import run_cell
+        for arch, shape in {DRYRUN_CELLS!r}:
+            rep = run_cell(arch, shape, multi_pod=False,
+                           mesh=((2, 4), ("data", "model")), reduced=True,
+                           device="cpu")
+            assert not dist.is_initialized()
+            print("REPORT", json.dumps(rep))
+    """)
+    reports = [json.loads(line.split("REPORT", 1)[1])
+               for line in out.splitlines() if line.startswith("REPORT")]
+    return {(r["arch"], r["shape"]): r for r in reports}
+
+
+@pytest.mark.parametrize("arch,shape", DRYRUN_CELLS)
+def test_dryrun_cell_on_a_fake_world(fake_world_reports, arch, shape):
+    """The report of a cell on a fake 2×4 world has the reference's
+    carried-over keys and no invented HLO key, per-device flops and bytes
+    above 0, collectives wherever the port's layout has them (the train
+    step; not a dense model's decode, whose rows need no other rank), and
+    the analytic keys equal the reference's functions on the reference's
+    padded config."""
+    from repro.configs import ARCHS as RA
+    from repro.configs import SHAPES as RS
+    from repro.configs import padded_for_tp as ref_padded
+    from repro.launch.analysis import attention_flops
+
+    rep = fake_world_reports[(arch, shape)]
+    for key in CARRIED_KEYS:
+        assert key in rep, key
+    assert not [k for k in rep if k.startswith("hlo_") or k.endswith(
+        "_rolled") or k in ("compile_s", "generated_code_size_in_bytes")]
+    assert rep["mesh"] == "2x4" and rep["n_devices"] == 8
+    assert rep["flops_per_device"] > 0 and rep["per_device_bytes"] > 0
+    assert rep["argument_size_in_bytes"] > 0
+    assert rep["per_device_bytes"] >= rep["argument_size_in_bytes"]
+    coll = rep["collectives_per_device_bytes"]
+    assert coll["total"] == pytest.approx(sum(
+        v for k, v in coll.items() if k != "total"))
+    assert (coll["total"] > 0) == (rep["kind"] == "train")
+    cfg0 = RA[arch].reduced()
+    cfg = ref_padded(cfg0, 4)
+    spec = RS[shape]
+    assert rep["model_params"] == cfg0.n_params()
+    assert rep["model_active_params"] == cfg0.n_active_params()
+    assert rep["padded_params"] == cfg.n_params()
+    assert rep["padded_active_params"] == cfg.n_active_params()
+    assert rep["attn_flops_total"] == attention_flops(
+        cfg, spec.kind, B=spec.global_batch,
+        T=spec.seq_len if spec.kind != "decode" else 1,
+        cache_len=spec.seq_len if spec.kind == "decode" else 0)
+
+
+_TINY_TRAIN = """
+import torch
+from repro_torch.configs import SHAPES, ShapeSpec, get_config, padded_for_tp
+SHAPES["train_tiny"] = ShapeSpec("train_tiny", 64, 8, "train")
+TCFG = dict(compute_dtype=torch.bfloat16, remat=True, use_kernels=False)
+"""
+
+
+def test_dryrun_fake_world_matches_a_real_world(tmp_path):
+    """The reduced qwen3 train step, bf16 with remat, on a real 2×2 gloo
+    world (real tensors, ``DeviceCounter`` on each rank) and as the dry
+    run on a fake 2×2 world as each rank: every rank's flop count and its
+    list of collectives (kind, per-rank bytes, group size, in order) are
+    the same.  The batch is 8 × 64 tokens, not ``train_4k``'s 256 × 4096
+    (a real CPU step of a million tokens per rank): the collectives move
+    the parameters and gradients, whose sizes do not depend on it."""
+    run_world(tmp_path, _TINY_TRAIN + """
+from repro_torch.launch.dryrun import DeviceCounter
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import model as M
+from repro_torch.models.sharding import DEFAULT_RULES, axis_rules
+from repro_torch.train.train_step import (TrainConfig, init_state,
+                                          make_train_step, place_state,
+                                          state_shardings)
+join()
+mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+cfg = padded_for_tp(get_config("qwen3-1.7b").reduced(), 2)
+state = init_state(cfg, M.init(cfg, torch.Generator().manual_seed(0),
+                               device="cpu", tp=2))
+with axis_rules(mesh, DEFAULT_RULES):
+    state = place_state(state, state_shardings(cfg, state, mesh))
+toks = np.random.default_rng(0).integers(0, cfg.vocab, size=(8, 65))
+batch = {"tokens": torch.from_numpy(toks[:, :-1]).int(),
+         "labels": torch.from_numpy(toks[:, 1:]).int()}
+step = make_train_step(cfg, TrainConfig(**TCFG), mesh=mesh)
+c = DeviceCounter("cpu")
+with axis_rules(mesh, DEFAULT_RULES), c:
+    step(state, batch)
+json.dump({"flops": c.flops, "collectives": c.collectives},
+          open(f"real{RANK}.json", "w"))
+dist.destroy_process_group()
+""")
+    run_fake(tmp_path, _TINY_TRAIN + """
+import torch.distributed as dist
+import torch.testing._internal.distributed.fake_pg  # noqa: F401
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import make_mesh
+for rank in range(4):
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank,
+                            world_size=4)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rep = run_cell("qwen3-1.7b", "train_tiny", False, mesh=mesh,
+                   reduced=True, device="cpu")
+    json.dump({"flops": rep["flops_per_device"],
+               "collectives": rep["collectives"]},
+              open(f"fake{rank}.json", "w"))
+    dist.destroy_process_group()
+""")
+    for r in range(WORLD):
+        real = json.load(open(tmp_path / f"real{r}.json"))
+        fake = json.load(open(tmp_path / f"fake{r}.json"))
+        assert real["flops"] > 0 and real["collectives"]
+        assert fake["flops"] == real["flops"], r
+        assert [list(c) for c in real["collectives"]] == fake["collectives"], r
+
+
+def test_dryrun_flops_equal_flop_counter_on_the_real_step(tmp_path):
+    """The CPU rehearsal of phase 15b: on a one-rank gloo world with a 1×1
+    mesh, the dry run's per-device flops equal ``FlopCounterMode``'s count
+    over the real step on the same shapes, for the reduced qwen3 train
+    step (bf16, remat) and a reduced Granite-MoE prefill past the
+    dense-attention limit (``chunked_attention`` traced once a layer
+    signature and replayed)."""
+    run_world(tmp_path, _TINY_TRAIN + """
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch.configs import SHAPES, ShapeSpec
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import model as M
+from repro_torch.models.sharding import DEFAULT_RULES, axis_rules
+from repro_torch.train.train_step import (TrainConfig, init_state,
+                                          make_train_step, place_state,
+                                          state_shardings)
+SHAPES["prefill_tiny"] = ShapeSpec("prefill_tiny", 4096, 3, "prefill")
+join()
+mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+cfg = get_config("qwen3-1.7b").reduced()
+state = init_state(cfg, M.init(cfg, torch.Generator().manual_seed(0),
+                               device="cpu"))
+with axis_rules(mesh, DEFAULT_RULES):
+    state = place_state(state, state_shardings(cfg, state, mesh))
+toks = torch.zeros((8, 64), dtype=torch.int32)
+step = make_train_step(cfg, TrainConfig(**TCFG), mesh=mesh)
+f = FlopCounterMode(display=False)
+with axis_rules(mesh, DEFAULT_RULES), f:
+    step(state, {"tokens": toks, "labels": toks})
+dry = run_cell("qwen3-1.7b", "train_tiny", False, mesh=mesh, reduced=True,
+               device="cpu")
+assert dry["flops_per_device"] == f.get_total_flops(), (
+    dry["flops_per_device"], f.get_total_flops())
+g = get_config("granite-moe-3b-a800m").reduced()
+params = M.init(g, torch.Generator().manual_seed(0), device="cpu",
+                dtype=torch.bfloat16)
+f = FlopCounterMode(display=False)
+with axis_rules(mesh, DEFAULT_RULES), f:
+    M.prefill(g, params, {"tokens": torch.zeros((3, 4096), dtype=torch.int32)},
+              max_cache_len=4096, mesh=mesh)
+dry = run_cell("granite-moe-3b-a800m", "prefill_tiny", False, mesh=mesh,
+               reduced=True, device="cpu")
+assert dry["flops_per_device"] == f.get_total_flops(), (
+    dry["flops_per_device"], f.get_total_flops())
+assert dry["collectives_per_device_bytes"]["total"] == 0.0
+dist.destroy_process_group()
+""", world=1)
