@@ -3717,13 +3717,14 @@ def phase_train_mesh(device, arch=TRAIN_ARCH, depth=MESH_DEPTH,
               f"first step {records[0]['s']!r} s, warm steps {warm!r} s "
               f"(median {statistics.median(warm)!r} s)")
     print(f"{phase}: losses agree to {worst!r} relative")
+    return runs
 
 
 def phase_multidevice(device):
     """Phase 14: 14a the planners; on a one-rank NCCL world, 14b the
     expert-parallel MoE, 14c the hierarchical all-reduce and 14d the
     launcher's ``--mesh``.  Returns 14b's LM kernel launches by name (expert
-    parallel, one device)."""
+    parallel, one device) and 14d's records of the ``--mesh 1x1`` steps."""
     from repro_torch.launch.mesh import make_mesh
 
     t = time.perf_counter()
@@ -3736,12 +3737,12 @@ def phase_multidevice(device):
         phase_allreduce_mesh(device, make_mesh((1, 1), ("pod", "data"),
                                                device.type))
         free_device_memory(device)
-        phase_train_mesh(device)
+        train_runs = phase_train_mesh(device)
         free_device_memory(device)
     finally:
         leave()
     print(f"phase 14: {time.perf_counter() - t:.1f} s")
-    return launches
+    return launches, train_runs["--mesh 1x1"]
 
 
 # ---------------------------------------------------------------------------
@@ -3773,23 +3774,38 @@ def _finite_numbers(tree) -> bool:
     return True
 
 
-def _communicates(report, cfg) -> bool:
-    """Whether the port's layout has collectives in this cell: a train
-    step (all-gathers, reduce-scatters, the loss's means), or an MoE
-    model (its experts' outputs summed over ``"model"``).  A dense model's
-    prefill or decode runs each rank's rows alone."""
-    return report["kind"] == "train" or bool(cfg.n_experts)
+#: the reference's layout on the same cells: (per-device bytes, flops a
+#: device) from its own dry run (``python -m repro.launch.dryrun --arch A
+#: --shape S --multi-pod M``: XLA's ``memory_analysis`` and
+#: ``cost_analysis``, shape arithmetic compiled for the CPU, no TPU; its
+#: chunked attention's inner scans stay rolled and are counted once);
+#: Llama4-Scout's analysis build fails, so it has no flops
+REFERENCE_DRYRUN = {
+    ("qwen3-1.7b", "train_4k", False): (24.20e9, 6.07e13),
+    ("granite-moe-3b-a800m", "prefill_32k", False): (5.44e9, 1.016e13),
+    ("falcon-mamba-7b", "decode_32k", False): (0.557e9, 1.548e10),
+    ("llama4-scout-17b-a16e", "train_4k", True): (42.49e9, None),
+}
+#: 15a: these cells fit in one card in the tensor-parallel layout
+DRYRUN_MUST_FIT = (("qwen3-1.7b", "train_4k", False),
+                   ("llama4-scout-17b-a16e", "train_4k", True))
+#: 15a: Qwen3-1.7B ``train_4k``'s flops a device at most this many times
+#: the reference's
+DRYRUN_FLOPS_RATIO = 1.25
 
 
 def phase_dryrun_production(device, cells=DRYRUN_CELLS, reduced=False):
     """Phase 15a: ``launch.dryrun.run_cell`` of each cell at its production
     mesh (a fake world of 256 or 512 ranks, stand-ins on the meta device,
     ``device`` the card the step would run on): every trace finishes, every
-    count is finite, collectives wherever the port's layout has them, and
-    no byte is allocated on the card.  Whether each cell fits in one card
-    is printed, not checked.  Returns the reports."""
+    count is finite, every cell communicates (each tensor-parallel layer
+    all-reduces over ``"model"``), no byte is allocated on the card, the
+    cells of ``DRYRUN_MUST_FIT`` fit in one card and Qwen3-1.7B
+    ``train_4k``'s flops a device are at most ``DRYRUN_FLOPS_RATIO`` times
+    the reference's.  Each cell's bytes and flops are printed beside the
+    reference's (``REFERENCE_DRYRUN``; not checked for a reduced config).
+    Returns the reports."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import CARD_BYTES, COLLECTIVE_KINDS, run_cell
 
     print("== phase 15a: the dry run at the production meshes, on stand-ins "
@@ -3804,12 +3820,26 @@ def phase_dryrun_production(device, cells=DRYRUN_CELLS, reduced=False):
         label = f"15a {arch} {shape} {rep['mesh']}"
         check(_finite_numbers(rep), f"{label}: a count is not finite")
         coll = rep["collectives_per_device_bytes"]
-        cfg = get_config(arch)
-        if _communicates(rep, cfg):
-            check(coll["total"] > 0, f"{label}: no collective traced")
-        else:
-            check(coll["total"] == 0, f"{label}: {coll} where the layout "
-                  "has no collective")
+        check(coll["total"] > 0, f"{label}: no collective traced")
+        ref_bytes, ref_flops = REFERENCE_DRYRUN.get((arch, shape, multi_pod),
+                                                    (None, None))
+        if not reduced:
+            if (arch, shape, multi_pod) in DRYRUN_MUST_FIT:
+                check(rep["fits_card"], f"{label}: {rep['per_device_bytes']} "
+                      f"bytes a device do not fit in {CARD_BYTES:.0f}")
+            if (arch, shape) == ("qwen3-1.7b", "train_4k"):
+                check(rep["flops_per_device"] <= DRYRUN_FLOPS_RATIO * ref_flops,
+                      f"{label}: flops {rep['flops_per_device']} over "
+                      f"{DRYRUN_FLOPS_RATIO} x the reference's {ref_flops}")
+        if ref_bytes is not None and not reduced:
+            print(f"{label} beside the reference's layout: per-device bytes "
+                  f"{rep['per_device_bytes'] / 1e9!r} GB against "
+                  f"{ref_bytes / 1e9!r} GB "
+                  f"({rep['per_device_bytes'] / ref_bytes!r}x); flops a "
+                  f"device {rep['flops_per_device']} against "
+                  f"{ref_flops!r} ("
+                  f"{rep['flops_per_device'] / ref_flops if ref_flops else None!r}"
+                  "x)", flush=True)
         print(f"{label}: per_device_bytes {rep['per_device_bytes']} "
               f"({rep['per_device_bytes'] / 1e9!r} GB; arguments "
               f"{rep['argument_size_in_bytes'] / 1e9!r} GB), fits in one "
@@ -3968,6 +3998,402 @@ def phase_dryrun(device):
     return reports, gaps
 
 
+# ---------------------------------------------------------------------------
+# phase 16: tensor parallelism on the card, two ranks on one H100
+# ---------------------------------------------------------------------------
+
+#: phase 16's mesh: (data 1, model 2), one process a rank on the one card,
+#: over gloo (NCCL refuses two ranks on one device)
+TP_MESH = (1, 2)
+#: 16a: the float32 cut's depth and tokens, the bf16 steps' depth
+TP_CUT_DEPTH, TP_CUT_SEQ, TP_STEPS_DEPTH = 2, 256, 4
+#: 16b: (arch, depth) served through ServeEngine(mesh=), float32 with
+#: kernels (RecurrentGemma: one pattern group plus the tail, the least depth
+#: its config allows), the prompt and the decode steps
+TP_SERVE = ((SERVE_ARCH, None), (MAMBA_ARCH, 4))
+TP_PROMPT, TP_DECODE = 3000, 3
+TP_TIMEOUT_S = 600
+#: the kernels a tensor-parallel prefill or decode step launches
+TP_KERNELS = ("flash_attention", "rglru_scan", "mamba_scan")
+
+
+def _tp_join(rank, workdir, device_type="cuda"):
+    """Join phase 16's gloo world of ``TP_MESH`` ranks on the card (or, to
+    rehearse, the CPU); returns (the device, the mesh)."""
+    import math
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    device = torch.device("cuda", 0) if device_type == "cuda" else \
+        torch.device(device_type)
+    store = dist.FileStore(os.path.join(workdir, "store"), math.prod(TP_MESH))
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=math.prod(TP_MESH))
+    return device, make_mesh(TP_MESH, ("data", "model"), device_type)
+
+
+def tp_float32_cut(device, mesh, depth=TP_CUT_DEPTH, seq=TP_CUT_SEQ,
+                   cfg=None):
+    """16a, on this rank: ``TRAIN_ARCH`` at full width and depth ``depth``,
+    float32 without TF32, B=1: the loss on the mesh against one device's,
+    and this rank's shard of every gradient against the same shard of one
+    device's.  Returns (loss gap, worst gradient gap over the leaf's
+    largest entry, leaves)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, padded_for_tp
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import (DEFAULT_RULES, axis_rules,
+                                             local_shard)
+    from repro_torch.train.optim import tree_get
+
+    torch.set_float32_matmul_precision("highest")
+    cfg = padded_for_tp(dataclasses.replace(cfg or get_config(TRAIN_ARCH),
+                                            n_layers=depth), TP_MESH[1])
+    params = M.init(cfg, torch.Generator(device=device).manual_seed(3),
+                    device=device)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, size=(1, seq + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device=device),
+             "labels": torch.as_tensor(toks[:, 1:], device=device)}
+    want_loss, want = _grads(cfg, params, batch)
+    with axis_rules(mesh, DEFAULT_RULES):
+        placed = M.place_params(cfg, params, mesh)
+    leaves = M._tree_map(lambda _, a: a.detach().requires_grad_(), placed)
+    loss, _ = M.loss_fn(cfg, leaves, batch, mesh=mesh)
+    paths, flat = [], []
+    M._tree_map(lambda p, a: (paths.append(p), flat.append(a)), leaves)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    worst = 0.0
+    for path, g in zip(paths, grads):
+        w = want[path]
+        if w is None or g is None:
+            check(w is None and g is None, f"16a {'/'.join(path)}: reached "
+                  "on one side only")
+            continue
+        # this rank's shard of one device's gradient: no communication
+        w_local = local_shard(w, mesh, tree_get(placed, path).placements)
+        scale = float(w.abs().max())
+        worst = max(worst, float((g.to_local() - w_local).abs().max()) / scale)
+    gap = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    del params, placed, leaves, grads, want
+    return gap, worst, len(paths)
+
+
+def tp_train_steps(device, mesh, depth=TP_STEPS_DEPTH, steps=MESH_TRAIN_STEPS,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, cfg=None):
+    """16a, on this rank: ``steps`` AdamW steps of ``TRAIN_ARCH`` at full
+    width and depth ``depth`` in bf16 over float32 masters with remat, the
+    state at rest on the mesh: (losses, each step's wall, the peak bytes
+    allocated on the card by this process)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, padded_for_tp
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import DEFAULT_RULES, axis_rules
+    from repro_torch.train.train_step import (TrainConfig, init_state,
+                                              make_train_step, place_state,
+                                              state_shardings)
+
+    cfg = padded_for_tp(dataclasses.replace(cfg or get_config(TRAIN_ARCH),
+                                            n_layers=depth), TP_MESH[1])
+    state = init_state(cfg, M.init(cfg, torch.Generator(device=device)
+                                   .manual_seed(4), device=device,
+                                   tp=TP_MESH[1]))
+    with axis_rules(mesh, DEFAULT_RULES):
+        state = place_state(state, state_shardings(cfg, state, mesh))
+    free_device_memory(device)
+    on_card = device.type == "cuda"
+    if on_card:  # from the state at rest on
+        torch.cuda.reset_peak_memory_stats(device)
+    step = make_train_step(cfg, TrainConfig(compute_dtype=torch.bfloat16,
+                                            remat=True), mesh=mesh)
+    rng = np.random.default_rng(4)
+    losses, walls = [], []
+    for _ in range(steps):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(batch, seq + 1)),
+                               dtype=torch.int32, device=device)
+        _sync(device)
+        t = time.perf_counter()
+        with axis_rules(mesh, DEFAULT_RULES):
+            state, metrics = step(state, {"tokens": toks[:, :-1],
+                                          "labels": toks[:, 1:]})
+        loss = _metric(metrics["loss"])
+        _sync(device)
+        walls.append(time.perf_counter() - t)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    del state
+    return losses, walls, peak
+
+
+def _width_recorder():
+    """Wrap the kernels as ``kernels.ops`` calls them so that each launch's
+    local width is recorded: the query and kv heads of ``flash_attention``,
+    the channels of the scans.  Returns (the record, a function that
+    unwraps)."""
+    from repro_torch.kernels import ops
+
+    seen = {name: set() for name in TP_KERNELS}
+    real = {name: getattr(ops, name) for name in TP_KERNELS}
+
+    def attention(q, k, *args, **kwargs):
+        seen["flash_attention"].add((q.shape[1], k.shape[1]))
+        return real["flash_attention"](q, k, *args, **kwargs)
+
+    def channels(name):
+        def run(x, *args, **kwargs):
+            seen[name].add(x.shape[-1])
+            return real[name](x, *args, **kwargs)
+        return run
+
+    ops.flash_attention = attention
+    ops.rglru_scan = channels("rglru_scan")
+    ops.mamba_scan = channels("mamba_scan")
+
+    def restore():
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+
+    return seen, restore
+
+
+def _logits_recorder():
+    """Wrap ``model.prefill`` and ``model.decode_step`` so that the logits
+    the serving engine samples from are kept (on a mesh this rank's vocab
+    shard): the prefill's last row, each decode step's.  Returns (the
+    list, a function that unwraps)."""
+    from repro_torch.models import model as M
+
+    real, rows = (M.prefill, M.decode_step), []
+
+    def prefill(cfg, params, batch, *args, **kwargs):
+        out = real[0](cfg, params, batch, *args, **kwargs)
+        rows.append(out[0][0, batch["tokens"].shape[1] - 1].clone())
+        return out
+
+    def decode_step(*args, **kwargs):
+        out = real[1](*args, **kwargs)
+        rows.append(out[0][0, -1].clone())
+        return out
+
+    M.prefill, M.decode_step = prefill, decode_step
+
+    def restore():
+        M.prefill, M.decode_step = real
+
+    return rows, restore
+
+
+def tp_serving(device, mesh, arch, depth=None, prompt_len=TP_PROMPT,
+               steps=TP_DECODE, cfg=None):
+    """16b, on this rank: ``arch`` at full width and depth ``depth``
+    (default: one pattern group plus the tail), padded for the mesh's
+    ``"model"`` ranks on both sides, float32 with kernels: one request of
+    ``prompt_len`` tokens and ``steps`` decode steps through
+    ``ServeEngine(mesh=)`` and through the one-device engine on the same
+    weights.  Returns what the parent checks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, padded_for_tp
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import local_range
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    base = cfg or get_config(arch)
+    depth = depth or len(base.pattern) + len(base.tail)
+    cfg = padded_for_tp(dataclasses.replace(base, n_layers=depth), TP_MESH[1])
+    params = M.init(cfg, torch.Generator(device=device).manual_seed(16),
+                    device=device, dtype=torch.float32)
+    prompt = np.random.default_rng(16).integers(0, cfg.vocab, size=prompt_len)
+    scfg = ServeConfig(slots=1, max_len=prompt_len + steps + 1,
+                       compute_dtype=torch.float32, use_kernels=True)
+    kernels = _lm_kernels()
+    out = {}
+    for label, on_mesh in (("one device", None), ("mesh", mesh)):
+        rows, unwrap = _logits_recorder()
+        seen, unwrap_widths = _width_recorder()
+        for w in kernels.values():
+            w.launches = 0
+        try:
+            engine = ServeEngine(cfg, params, scfg, device=device,
+                                 mesh=on_mesh)
+            engine.submit(Request(0, prompt, 1 + steps))
+            done = engine.run()
+            _sync(device)
+        finally:
+            unwrap()
+            unwrap_widths()
+        out[label] = {"tokens": done[0].output, "rows": rows,
+                      "launches": {k: kernels[k].launches
+                                   for k in TP_KERNELS},
+                      "widths": {k: sorted(v) for k, v in seen.items()}}
+        del engine
+    lo, hi = local_range(out["mesh"]["rows"][0].shape[-1], mesh)
+    atol, rtol = MODEL_TOL
+    errs, oks = [], []
+    for got, want in zip(out["mesh"]["rows"], out["one device"]["rows"]):
+        ok, err = _close(got, want[lo:hi], atol, rtol)
+        oks.append(ok and bool(torch.isfinite(got).all()))
+        errs.append(err)
+    per_call = expected_launches(cfg)
+    expect = {k: per_call[k][0] + steps * per_call[k][1] for k in TP_KERNELS}
+    del params
+    free_device_memory(device)
+    return {"arch": cfg.name, "depth": depth, "vocab_shard": [lo, hi],
+            "tokens": out["mesh"]["tokens"],
+            "tokens_one_device": out["one device"]["tokens"],
+            "logits_ok": oks, "logits_err": errs,
+            "launches": out["mesh"]["launches"], "expected": expect,
+            "widths": out["mesh"]["widths"],
+            "widths_one_device": out["one device"]["widths"]}
+
+
+def tp_rank_main(rank: int, workdir: str) -> None:
+    """One rank of phase 16, in a process of its own: 16a and 16b, the
+    results written to ``workdir``/``rank<R>.json``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    import repro_torch
+
+    device, mesh = _tp_join(rank, workdir)
+    repro_torch.set_default_device(device)
+    try:
+        t = time.perf_counter()
+        gap, worst, n = tp_float32_cut(device, mesh)
+        free_device_memory(device)
+        losses, walls, peak = tp_train_steps(device, mesh)
+        free_device_memory(device)
+        t16a = time.perf_counter() - t
+        serving = [tp_serving(device, mesh, arch, depth)
+                   for arch, depth in TP_SERVE]
+        result = {"rank": rank, "loss_gap": gap, "worst_grad": worst,
+                  "leaves": n, "losses": losses, "walls": walls,
+                  "peak": peak, "t16a": t16a,
+                  "t16b": time.perf_counter() - t - t16a,
+                  "serving": serving,
+                  "torch": torch.__version__}
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tensor_parallel(device, mesh_14d=None):
+    """Phase 16: the mesh layout on the card, ``TP_MESH`` = (data 1, model
+    2): two processes on the one H100 over gloo with CUDA tensors (NCCL
+    refuses two ranks on one device), each running :func:`tp_rank_main`.
+    16a: Qwen3-1.7B's float32 depth-2 cut on the mesh against one device
+    (loss rtol ``TRAIN_LOSS_RTOL``, every gradient shard atol
+    ``TRAIN_GRAD_TOL`` of the leaf's largest entry, phase 11b's bar), then
+    bf16 AdamW steps at depth 4 (losses finite, walls and peak per rank
+    beside phase 14d's); 16b: RecurrentGemma and Falcon-Mamba through
+    ``ServeEngine(mesh=)`` with kernels against one device (the same
+    greedy tokens, logits at ``MODEL_TOL``, every kernel launched on every
+    rank in every layer that has one).  Returns the mesh runs' launches by
+    kernel, summed over the ranks."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    print(f"== phase 16: tensor parallelism on the card, a (data, model) = "
+          f"{TP_MESH} mesh of {math.prod(TP_MESH)} processes on one card "
+          "over gloo", flush=True)
+    t = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    procs, logs = [], []
+    try:
+        for r in range(math.prod(TP_MESH)):
+            log = open(os.path.join(workdir, f"rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--tp-rank",
+                 str(r), workdir], stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + TP_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    results = []
+    for r, p in enumerate(procs):
+        text = open(os.path.join(workdir, f"rank{r}.log")).read()
+        if p.returncode != 0:
+            print(f"-- phase 16 rank {r} (rc {p.returncode}):\n{text[-8000:]}")
+        check(p.returncode == 0, f"16: rank {r} exited {p.returncode}")
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    shutil.rmtree(workdir, ignore_errors=True)
+    launches = {k: 0 for k in TP_KERNELS}
+    for res in results:
+        r = res["rank"]
+        check(res["loss_gap"] <= TRAIN_LOSS_RTOL, f"16a rank {r}: loss "
+              f"{res['loss_gap']} from one device's (over {TRAIN_LOSS_RTOL})")
+        check(res["worst_grad"] <= TRAIN_GRAD_TOL, f"16a rank {r}: a gradient "
+              f"shard {res['worst_grad']} of its leaf's largest entry from "
+              f"one device's (over {TRAIN_GRAD_TOL})")
+        check(all(math.isfinite(v) for v in res["losses"]),
+              f"16a rank {r}: losses {res['losses']}")
+        print(f"16a rank {r} (torch {res['torch']}): float32 depth "
+              f"{TP_CUT_DEPTH} loss {res['loss_gap']!r} relative from one "
+              f"device's, {res['leaves']} gradient shards, worst "
+              f"{res['worst_grad']!r} of the leaf's largest entry; bf16 "
+              f"depth {TP_STEPS_DEPTH}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+              f"losses {res['losses']!r}, step walls {res['walls']!r} s, "
+              f"peak {res['peak'] / 1e9!r} GB allocated by this rank; "
+              f"16a {res['t16a']:.1f} s, 16b {res['t16b']:.1f} s", flush=True)
+        for srv in res["serving"]:
+            label = f"16b rank {r} {srv['arch']} depth {srv['depth']}"
+            check(srv["tokens"] == srv["tokens_one_device"],
+                  f"{label}: tokens {srv['tokens']} on the mesh, "
+                  f"{srv['tokens_one_device']} on one device")
+            check(all(srv["logits_ok"]), f"{label}: logits max |err| "
+                  f"{srv['logits_err']} over {MODEL_TOL}")
+            check(srv["launches"] == srv["expected"], f"{label}: launches "
+                  f"{srv['launches']}, every layer's kernels "
+                  f"{srv['expected']}")
+            check(any(srv["launches"].values()), f"{label}: no kernel launched")
+            print(f"{label}: tokens {srv['tokens']} (one device "
+                  f"{srv['tokens_one_device']}); logits (vocab shard "
+                  f"{srv['vocab_shard']}) max |err| {srv['logits_err']!r} "
+                  f"(atol, rtol {MODEL_TOL}); launches {srv['launches']} "
+                  f"(every layer: {srv['expected']}); local widths "
+                  f"{srv['widths']} (one device {srv['widths_one_device']})",
+                  flush=True)
+            for k in TP_KERNELS:
+                launches[k] += srv["launches"][k]
+    losses = [res["losses"] for res in results]
+    check(all(v == losses[0] for v in losses),
+          f"16a: the ranks' losses differ: {losses}")
+    if mesh_14d:
+        warm = [rec["s"] for rec in mesh_14d[1:]]
+        print(f"16a beside 14d (--mesh 1x1, one process, the same depth and "
+              f"tokens): 14d warm step walls {warm!r} s")
+    print(f"phase 16: {time.perf_counter() - t:.1f} s; mesh launches summed "
+          f"over the ranks {launches}", flush=True)
+    return launches
+
+
 def free_device_memory(device) -> None:
     """Return what the finished phases held to the card."""
     import gc
@@ -4032,7 +4458,7 @@ def main() -> None:
                                "expert parallel (14b)": 0}
     for w in _lm_kernels().values():
         w.launches = 0
-    ep_launches, one_launches = phase_multidevice(device)
+    (ep_launches, one_launches), mesh_14d = phase_multidevice(device)
     counted = {k: w.launches for k, w in _lm_kernels().items()}
     check(counted == {k: ep_launches[k] + one_launches[k] for k in counted}
           and ep_launches["moe_dispatch"] > 0, f"phase 14 counted {counted} "
@@ -4040,6 +4466,8 @@ def main() -> None:
           f"{one_launches} on one device")
     free_device_memory(device)
     phase_dryrun(device)
+    free_device_memory(device)
+    tp_launches = phase_tensor_parallel(device, mesh_14d)
     moe["launches_by_path"]["expert parallel (14b)"] = ep_launches["moe_dispatch"]
     moe["launches"] += ep_launches["moe_dispatch"]
     segsum = entries[0]
@@ -4057,6 +4485,12 @@ def main() -> None:
     flash["max_abs_err"] = max(flash["max_abs_err"], flash_granite["max_abs_err"])
     flash["granite_prefill"] = flash_granite
     flash["bf16_tensor_core_build"] = flash_build
+    for e in entries:
+        if e["name"] in tp_launches:
+            e.setdefault("launches_by_path", {"serving": e["launches"]})
+            e["launches_by_path"]["tensor parallel (16b)"] = \
+                tp_launches[e["name"]]
+            e["launches"] += tp_launches[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
@@ -4065,4 +4499,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 4 and sys.argv[1] == "--tp-rank":
+        tp_rank_main(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -7,10 +7,12 @@ For each cell this script
      16×16 pod, 512 for 2×16×16; no process talks to another) unless the
      process already has one, and builds the mesh on it;
   2. builds this rank's stand-ins on the meta device, shapes and dtypes
-     without storage: the train state placed by ``state_shardings`` (each
-     leaf a DTensor of its local shard), the parameters, the batch
-     (``configs.input_specs``) and the decode cache
-     (``configs.cache_specs``), so no memory is ever allocated;
+     without storage: the train state placed by ``state_shardings`` or the
+     serving parameters by ``model.param_named_shardings`` (each leaf a
+     DTensor of its local shard), this rank's rows of the batch
+     (``configs.input_specs``) and of the decode cache (``model.init_cache``
+     at this rank's rows, kv heads and channels), so no memory is ever
+     allocated;
   3. runs the port's own step function on them (``make_train_step``,
      ``model.prefill``, ``model.decode_step``) under :class:`DeviceCounter`,
      a dispatch mode that sees every op on this rank's local tensors and
@@ -49,8 +51,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch._device import resolve_device
-from repro_torch.configs import (SHAPES, cache_specs, cells, get_config,
-                                 input_specs, padded_for_tp)
+from repro_torch.configs import (SHAPES, cells, get_config, input_specs,
+                                 padded_for_tp)
 from repro_torch.launch.analysis import attention_flops
 from repro_torch.launch.mesh import PRODUCTION_SHAPES, batch_axes, make_mesh
 from repro_torch.models import model as M
@@ -595,48 +597,55 @@ def _batch_shards(mesh) -> int:
                      for a in batch_axes(mesh))
 
 
-def _local_rows(tree, nb: int, dim_of=lambda path: 0, path=()):
-    """Fresh meta tensors of this rank's rows: the batch dim (``dim_of``
-    the leaf's path) over ``nb`` shards when it divides, else whole (the
-    reference's ``_batch_shardings``/``_cache_shardings`` rule)."""
-    if isinstance(tree, dict):
-        return {k: _local_rows(v, nb, dim_of, path + (k,))
-                for k, v in tree.items()}
-    d = dim_of(path)
-    shape = list(tree.shape)
-    if nb > 1 and shape[d] % nb == 0:
-        shape[d] //= nb
-    return torch.empty(shape, dtype=tree.dtype, device="meta")
+def _local_rows(batch, nb: int):
+    """Fresh meta tensors of this rank's rows of ``batch``: dim 0 over
+    ``nb`` shards when it divides, else whole (the reference's
+    ``_batch_shardings`` rule)."""
+    out = {}
+    for name, a in batch.items():
+        shape = list(a.shape)
+        if nb > 1 and shape[0] % nb == 0:
+            shape[0] //= nb
+        out[name] = torch.empty(shape, dtype=a.dtype, device="meta")
+    return out
 
 
 def _mesh_label(mesh) -> str:
     return "x".join(str(n) for n in mesh.shape)
 
 
-def _layout(kind: str, mesh, spec, nb: int, rows: int,
-            moe: bool) -> Dict[str, str]:
+def _layout(kind: str, mesh, spec, nb: int, rows: int, moe: bool,
+            rules_name: str) -> Dict[str, str]:
     """What the port ran on this mesh (README, "The dry run")."""
     axes = batch_axes(mesh)
     out = {}
+    tp = mesh.size(mesh.mesh_dim_names.index("model"))
+    gathered = ("each group's parameters all-gathered over the batch axes "
+                "that shard them when the group runs")
+    dense = (f"every dense layer tensor parallel over 'model' ({tp} ranks): "
+             "its heads, ffn and Mamba/RG-LRU channels split, all-reduces "
+             "at the row-parallel outputs; the embedding and the logits "
+             "vocab parallel")
     if kind == "train":
         out["parameters"] = (
             "float32 masters, AdamW moments and residuals at rest as "
             "state_shardings places them (FSDP over 'data', TP/EP over "
-            "'model'); every parameter all-gathered in full on every rank "
-            "each step, the dense layers run whole on each rank's rows; "
-            "gradients reduce-scattered back to the shards")
+            f"'model'); {gathered} (again in remat's recompute), their "
+            "backward the reduce-scatter of the gradients")
         out["batch"] = (f"the global batch of {spec.global_batch} rows on "
                         f"every rank; each rank trains on its {rows} rows "
                         f"over {axes}")
     else:
-        out["parameters"] = ("held in full on every rank in the compute "
-                             "dtype (no tensor parallelism)")
+        out["parameters"] = (f"at rest as the rules ({rules_name}) place "
+                             f"them in the compute dtype; {gathered}")
         out["batch"] = (f"{rows} of {spec.global_batch} rows on each rank "
                         f"(over {axes} where {nb} shards divide the batch, "
                         "else whole)")
         if kind == "decode":
-            out["cache"] = ("this rank's rows of the cache, whole along "
-                            "heads and features")
+            out["cache"] = ("this rank's rows of the cache (where the batch "
+                            "divides), its kv heads and Mamba/RG-LRU "
+                            "channels")
+    out["dense layers"] = dense
     if moe:
         out["experts"] = ("each rank routes its tokens over all experts "
                           "and runs the experts of its 'model' shard; the "
@@ -729,6 +738,9 @@ def _trace(mesh, cfg_orig, arch, shape, dev, compute_dtype, variant,
         rows = spec.global_batch // nb
     else:
         params = meta_params(cfg, compute_dtype, tp)
+        with axis_rules(mesh, rules):
+            params = _placed(params, M.param_named_shardings(cfg, params,
+                                                             mesh))
         batch = _local_rows(batch, nb)
         rows = next(iter(batch.values())).shape[0]
         if spec.kind == "prefill":
@@ -740,18 +752,17 @@ def _trace(mesh, cfg_orig, arch, shape, dev, compute_dtype, variant,
                                  last_only=last_only)
             args = (params, batch)
         else:
-            # the cache's rows: dim 1 of the group-stacked leaves, 0 of the
-            # tail's
-            cache = _local_rows(
-                cache_specs(cfg, shape, dtype=compute_dtype,
-                            kv_int8="kv_int8" in variant), nb,
-                lambda path: 0 if path[0] == "tail" else 1)
+            # this rank's rows (where the batch divides), kv heads and
+            # channels of the cache
+            cache = M.init_cache(cfg, rows, spec.seq_len, compute_dtype,
+                                 kv_int8="kv_int8" in variant, device="meta",
+                                 mesh=mesh)
 
             def step(params, batch, cache):
                 return M.decode_step(cfg, params, batch, cache, mesh=mesh)
             args = (params, batch, cache)
     report["layout"] = _layout(spec.kind, mesh, spec, nb, rows,
-                               bool(cfg.n_experts))
+                               bool(cfg.n_experts), rules_name)
     t0 = time.perf_counter()
     from repro_torch.kernels import ref
     from repro_torch.models import layers

@@ -19,6 +19,16 @@ Attention picks one of three evaluation strategies, as the reference does:
 
 The MoE FFN scatters its tokens through the Hopper ``moe_dispatch`` kernel
 with ``use_kernel=True``, at the reference's own slots.
+
+On a mesh (``mesh=``, a ``DeviceMesh`` with a ``"model"`` dim) every block
+runs tensor parallel, the layout GSPMD derives from the reference's
+annotations, written out in Megatron form: ``p`` holds this rank's shards
+of the weights (heads, the MLP's ``ffn``, the Mamba and RG-LRU inner
+channels, the experts), every width is read off them, a column-parallel
+product's input goes through :func:`.sharding.column_in` (its gradient
+summed over ``"model"``) and a row-parallel product's output through
+:func:`.sharding.row_out` (an all-reduce).  ``x`` is this rank's rows,
+alike on every ``"model"`` rank.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from . import sharding as S
 from .config import ArchConfig, Block
 from .sharding import shard
 
@@ -197,12 +208,20 @@ def attention_fwd(
     use_kernel: bool = False,
     mode: str = "train",  # train | prefill | decode
     max_cache_len: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Attention block.  In ``decode`` mode the new keys and values are
     written into ``cache`` in place (the port updates the shared serving
     cache in place, where the reference returns a new one), and ``cache``
-    itself is returned."""
+    itself is returned.  On a mesh this rank computes its ``H/tp`` query
+    heads and the ``Hkv/tp`` kv heads they read (``padded_for_tp`` makes
+    both divide, and GQA's query head ``h`` reads kv head ``h // group``,
+    so a contiguous share of each lines up); ``wo`` is row-parallel and a
+    decode cache holds the local kv heads."""
     B, T, d = x.shape
+    S.expect_local(p["wq"].shape[-2], cfg.n_heads, mesh, "query heads")
+    S.expect_local(p["wk"].shape[-2], cfg.n_kv_heads, mesh, "kv heads")
+    x = S.column_in(x, mesh)
     q = _ein("btd,dhk->bhtk", x, p["wq"])
     k = _ein("btd,dhk->bhtk", x, p["wk"])
     v = _ein("btd,dhk->bhtk", x, p["wv"])
@@ -210,8 +229,10 @@ def attention_fwd(
     k = shard(k, "act_batch", "act_kv_heads", "act_seq", None)
     v = shard(v, "act_batch", "act_kv_heads", "act_seq", None)
     if cfg.qk_norm:
-        q = _rms_headwise(q, p["q_scale"])
-        k = _rms_headwise(k, p["k_scale"])
+        # the scales are whole on every rank and act on its own heads: their
+        # gradients are summed over "model"
+        q = _rms_headwise(q, S.column_in(p["q_scale"], mesh))
+        k = _rms_headwise(k, S.column_in(p["k_scale"], mesh))
     if blk.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -247,8 +268,9 @@ def attention_fwd(
         vc = F.pad(v, (0, 0, 0, pad)) if pad else v
         new_cache = {"k": kc, "v": vc}
 
-    S = k.shape[2]
-    dense_cost = B * cfg.n_heads * T * S
+    # the strategy one device takes for these rows (all cfg.n_heads heads),
+    # also on a shard: a mesh computes what one device computes
+    dense_cost = B * cfg.n_heads * T * k.shape[2]
     if mode == "decode":
         # decode path: T is tiny; dense attention over the cache, masked by
         # each row's absolute positions.
@@ -261,7 +283,7 @@ def attention_fwd(
     else:
         out = chunked_attention(q, k, v, True, blk.window, 0)
     out = shard(out, "act_batch", "act_heads", "act_seq", None)
-    y = _ein("bhtk,hkd->btd", out, p["wo"])
+    y = S.row_out(_ein("bhtk,hkd->btd", out, p["wo"]), mesh)
     return shard(y, "act_batch", "act_seq", "act_embed"), new_cache
 
 
@@ -351,11 +373,16 @@ def _act(cfg: ArchConfig, x):
     return _silu(x) if cfg.act == "silu" else _gelu(x)
 
 
-def mlp_fwd(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp_fwd(cfg: ArchConfig, p: Params, x: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    """SwiGLU/GeGLU MLP; on a mesh ``w_gate`` and ``w_up`` are
+    column-parallel over ``ffn`` and ``w_down`` row-parallel."""
+    S.expect_local(p["w_up"].shape[-1], cfg.d_ff, mesh, "MLP ffn")
+    x = S.column_in(x, mesh)
     g = _ein("btd,df->btf", x, p["w_gate"])
     u = _ein("btd,df->btf", x, p["w_up"])
     h = shard(_act(cfg, g) * u, "act_batch", "act_seq", "act_ffn")
-    y = _ein("btf,fd->btd", h, p["w_down"])
+    y = S.row_out(_ein("btf,fd->btd", h, p["w_down"]), mesh)
     return shard(y, "act_batch", "act_seq", "act_embed")
 
 
@@ -458,7 +485,9 @@ def moe_fwd(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh=None,
     With a mesh: expert parallel, as the reference's ``shard_map`` over the
     batch axes for tokens and ``"model"`` for experts.  ``x`` is this
     rank's tokens (its shard of the batch over the batch axes) and ``p``
-    the full parameters; each rank routes its tokens over all experts and
+    the parameters: the experts (and their ``plan_capacity``) whole or
+    this rank's ``"model"`` shard of them, the router whole; each rank
+    routes its tokens over all experts and
     dispatches them to its own experts only (``kops.dispatch_at_slots``,
     the ``moe_dispatch`` kernel on a CUDA tensor), and the contributions
     are summed over ``"model"``: deterministic EP without all-to-all.
@@ -483,7 +512,10 @@ def _moe_expert_parallel(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh,
     E = p["router"].shape[1]
     M = mesh.size(mesh.mesh_dim_names.index("model"))
     El = E // M
-    lo = mesh.get_local_rank("model") * El
+    lo = S.tp_rank(mesh) * El
+    # this rank's experts: a shard as it rests on the mesh, or whole
+    local = {name: p[name] if p[name].shape[0] == El else p[name][lo:lo + El]
+             for name in ("w_gate", "w_up", "w_down", "plan_capacity")}
     batch = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
     x2d = x.reshape(N, d)
     # router over *all* experts, dispatch to the local shard only: tokens
@@ -511,7 +543,7 @@ def _moe_expert_parallel(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh,
     flat_ids = torch.clamp(flat_ids, 0, El - 1)
     C = int(np.ceil(N * k / E * cfg.capacity_factor))
     C = max(C, k)
-    capf = p["plan_capacity"][lo:lo + El]
+    capf = local["plan_capacity"]
     cap_e = torch.clamp(torch.round(capf * C), min=1).to(torch.int32)
     # slots over the local assignment stream (masked entries get slot C so
     # they never land)
@@ -522,7 +554,7 @@ def _moe_expert_parallel(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh,
     tokens = x_part.repeat_interleave(k, dim=0)  # row n*k + j is token n
     buf = kops.dispatch_at_slots(tokens, expert_ids, slot_ids, El, C,
                                  use_kernel=use_kernel)
-    wg, wu, wd = (p[name][lo:lo + El] for name in ("w_gate", "w_up", "w_down"))
+    wg, wu, wd = (local[name] for name in ("w_gate", "w_up", "w_down"))
     h = _act(cfg, _ein("ecd,edf->ecf", buf, wg)) * _ein("ecd,edf->ecf", buf, wu)
     out = _ein("ecf,efd->ecd", h, wd)
     back = kops.combine_tokens(out, expert_ids, slot_ids, flat_gates,
@@ -583,7 +615,14 @@ def rglru_fwd(
     x: torch.Tensor,  # (B, T, d)
     state: Optional[Dict] = None,
     use_kernel: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The RG-LRU block; on a mesh ``in_x`` and ``in_gate`` are
+    column-parallel, the conv, the diagonal gates and the scan run on this
+    rank's ``w/tp`` channels, ``out_proj`` is row-parallel."""
+    S.expect_local(p["in_x"].shape[-1], cfg.rglru_width, mesh,
+                   "RG-LRU channels")
+    x = S.column_in(x, mesh)
     xb = _ein("btd,dw->btw", x, p["in_x"])
     gb = _gelu(_ein("btd,dw->btw", x, p["in_gate"]))
     xb = shard(xb, "act_batch", "act_seq", "act_ffn")
@@ -601,7 +640,8 @@ def rglru_fwd(
     h, hT = kops.gated_linear_recurrence(
         xb.float() * gate_x.float(), a.reciprocal(), h0, use_kernel=use_kernel
     )
-    out = _ein("btw,wd->btd", h.to(xb.dtype) * gb, p["out_proj"])
+    out = S.row_out(_ein("btw,wd->btd", h.to(xb.dtype) * gb, p["out_proj"]),
+                    mesh)
     out = shard(out, "act_batch", "act_seq", "act_embed")
     new_state = {"h": hT, "conv": conv_new} if state is not None else None
     return out, new_state
@@ -637,11 +677,23 @@ def mamba_fwd(
     x: torch.Tensor,  # (B, T, d)
     state: Optional[Dict] = None,
     use_kernel: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The Mamba-1 block.  ``Bc`` and ``Cc`` reach the scan as views of the
     ``x_proj`` split (the kernel takes their strides); a float32 ``state``
-    promotes everything after the conv to float32, as in the reference."""
-    di, ds, dtr = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_dt_rank_
+    promotes everything after the conv to float32, as in the reference.
+
+    On a mesh the block runs on this rank's ``d_inner/tp`` channels:
+    ``in_proj``'s shard holds this rank's x channels and then its z
+    channels (the group gather regroups the leaf, which rests in one
+    contiguous piece a rank), the conv, ``dt_proj``, ``dt_bias``,
+    ``A_log``, ``D`` and the scan are local, ``x_proj`` is row-parallel
+    (summed before the split into Δ, B and C, whose gradients the ranks'
+    channels share) and ``out_proj`` row-parallel."""
+    di = p["D"].shape[-1]  # this rank's channels
+    S.expect_local(di, cfg.ssm_d_inner, mesh, "Mamba channels")
+    ds, dtr = p["A_log"].shape[-1], p["dt_proj"].shape[-2]
+    x = S.column_in(x, mesh)
     xz = _ein("btd,de->bte", x, p["in_proj"])
     xz = shard(xz, "act_batch", "act_seq", "act_ffn")
     xi, z = torch.split(xz, di, dim=-1)
@@ -656,6 +708,7 @@ def mamba_fwd(
     xs = xi.float() * _sigmoid(xi).float()
     xi = xs.to(xi.dtype)
     proj = _ein("bti,ie->bte", xi, p["x_proj"])
+    proj = S.column_in(S.row_out(proj, mesh), mesh)
     dt, Bc, Cc = torch.split(proj, [dtr, ds, ds], dim=-1)
     delta = _softplus(_ein("btr,ri->bti", dt, p["dt_proj"]) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
@@ -663,7 +716,7 @@ def mamba_fwd(
     y, hT = kops.ssm_scan(xs, delta.float(), A, Bc.float(), Cc.float(),
                           p["D"], h0, use_kernel=use_kernel)
     y = y.to(xi.dtype) * _silu(z)
-    out = _ein("bti,id->btd", y, p["out_proj"])
+    out = S.row_out(_ein("bti,id->btd", y, p["out_proj"]), mesh)
     out = shard(out, "act_batch", "act_seq", "act_embed")
     new_state = {"h": hT, "conv": conv_new} if state is not None else None
     return out, new_state

@@ -11,11 +11,13 @@ Public entry points:
 
 * ``init(cfg, generator, device, dtype, tp)``      → params
 * ``param_shardings(cfg, params)``                 → the spec of each leaf
+* ``param_named_shardings(cfg, params, mesh)``     → its placements on a mesh
+* ``place_params(cfg, params, mesh)``              → params at rest on a mesh
 * ``cast_params(params, dtype, device)``           → params in the compute dtype
 * ``forward(cfg, params, batch, ...)``             → logits, cache, aux
   (aux: the MoE blocks' load-balance losses summed, 0 without MoE)
 * ``loss_fn(cfg, params, batch, ...)``             → scalar, metrics
-* ``init_cache(cfg, B, max_len, dtype, ...)``      → cache
+* ``init_cache(cfg, B, max_len, dtype, ..., mesh)`` → cache
 * ``prefill(cfg, params, batch, max_cache_len, ...)`` → logits, cache, aux
 * ``decode_step(cfg, params, batch, cache, ...)``  → logits, cache, aux
 
@@ -26,10 +28,28 @@ call, the server casts once (:func:`init` with ``dtype=``, or
 float32 masters and passes ``compute_dtype=`` to :func:`forward`, which
 casts as the reference does, inside the autograd graph, so gradients land
 on the masters.  ``final_norm`` stays float32, as the reference leaves
-it.  Decode updates the cache in place.  With ``mesh=`` (a ``DeviceMesh``
-with a ``"model"`` dim) the MoE FFNs run expert parallel over it: the
-batch is this rank's shard over the batch axes, the parameters are full
-(:func:`repro_torch.models.layers.moe_fwd`).
+it.  Decode updates the cache in place.
+
+With ``mesh=`` (a ``DeviceMesh`` with a ``"model"`` dim) the stack runs in
+the reference's layout, the one GSPMD derives from its annotations:
+
+* the batch is this rank's rows (its shard over the batch axes);
+* the parameters rest as :func:`place_params` (or the train state) lays
+  them out, DTensors sharded by the rules (FSDP over ``"data"``, tensor
+  parallel over ``"model"``); each group's parameters (the embedding's,
+  the tail's) are all-gathered over the batch axes when the group runs,
+  and again in remat's recompute, so the peak holds one group's
+  parameters whole along ``"data"``, never the model's.  Their backward
+  is the reduce-scatter (:func:`.sharding.gather_param`).  Mamba's
+  ``in_proj`` rests as the rules say, contiguous over ``"model"``; its
+  gather also regroups it over ``"model"`` into this rank's x and z
+  channels (``_PARAM_BLOCKS``);
+* every dense layer runs on this rank's ``"model"`` shard
+  (:mod:`.layers`), the MoE FFNs expert parallel;
+* the embedding is vocab parallel (this rank's rows of the table, zero
+  for the other tokens, summed over ``"model"``), and so are the logits:
+  :func:`forward` returns this rank's vocab shard of them, and
+  :func:`loss_fn` takes the softmax over the shards.
 """
 from __future__ import annotations
 
@@ -134,6 +154,12 @@ _PARAM_RULES = {
 }
 
 
+#: leaves whose last dim is the concatenation of equal blocks: Mamba's
+#: ``in_proj`` is (d, [x | z]), and a rank computes with its x channels and
+#: the z channels of the same indices (its group gather regroups them)
+_PARAM_BLOCKS = {"in_proj": 2}
+
+
 def param_shardings(cfg: ArchConfig, params: Params):
     """The spec of every leaf of the parameter tree under the active rules
     (FSDP over 'data', TP/EP over 'model', experts over 'model'): the
@@ -164,6 +190,27 @@ def param_shardings(cfg: ArchConfig, params: Params):
     return _tree_map(spec, params)
 
 
+def param_named_shardings(cfg: ArchConfig, params: Params, mesh):
+    """The :class:`~.sharding.NamedSharding` of every leaf on ``mesh``
+    under the active rules (:func:`param_shardings`' specs)."""
+    from .sharding import NamedSharding
+
+    return _tree_map(lambda _, spec: NamedSharding.of(mesh, spec),
+                     param_shardings(cfg, params))
+
+
+def place_params(cfg: ArchConfig, params: Params, mesh) -> Params:
+    """``params`` (whole, alike on every rank) as DTensors at rest on
+    ``mesh``: each rank keeps its shard (no communication)."""
+    named = param_named_shardings(cfg, params, mesh)
+    return _tree_map(lambda path, a: _at(named, path).place(a), params)
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
 def _cast_f32(tree, dtype: torch.dtype):
     """The reference's per-call cast: float32 leaves to ``dtype``."""
     return _tree_map(lambda _, a: a.to(dtype) if a.dtype == torch.float32
@@ -186,26 +233,26 @@ def cast_params(params: Params, dtype: torch.dtype, device=None) -> Params:
 # caches
 # ---------------------------------------------------------------------------
 
-def _ssm_zero_state(cfg, B, dtype, device):
+def _ssm_zero_state(cfg, B, dtype, device, tp=1):
+    di = cfg.ssm_d_inner // tp
     return {
-        "h": torch.zeros((B, cfg.ssm_d_inner, cfg.ssm_state),
-                         dtype=torch.float32, device=device),
-        "conv": torch.zeros((B, cfg.ssm_conv - 1, cfg.ssm_d_inner),
-                            dtype=dtype, device=device),
-    }
-
-
-def _rglru_zero_state(cfg, B, dtype, device):
-    return {
-        "h": torch.zeros((B, cfg.rglru_width), dtype=torch.float32,
+        "h": torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
                          device=device),
-        "conv": torch.zeros((B, 3, cfg.rglru_width), dtype=dtype,
+        "conv": torch.zeros((B, cfg.ssm_conv - 1, di), dtype=dtype,
                             device=device),
     }
 
 
-def _attn_zero_cache(cfg, B, max_len, dtype, device):
-    shape = (B, cfg.n_kv_heads, max_len, cfg.head_dim_)
+def _rglru_zero_state(cfg, B, dtype, device, tp=1):
+    w = cfg.rglru_width // tp
+    return {
+        "h": torch.zeros((B, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((B, 3, w), dtype=dtype, device=device),
+    }
+
+
+def _attn_zero_cache(cfg, B, max_len, dtype, device, tp=1):
+    shape = (B, cfg.n_kv_heads // tp, max_len, cfg.head_dim_)
     if dtype == torch.int8:  # quantized cache (§Perf): int8 values + scales
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -217,35 +264,59 @@ def _attn_zero_cache(cfg, B, max_len, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _zero_cache(cfg, blk: Block, B, max_len, dtype, kv_dtype, device):
+def _zero_cache(cfg, blk: Block, B, max_len, dtype, kv_dtype, device, tp=1):
     if blk.mixer == "attn":
-        return _attn_zero_cache(cfg, B, max_len, kv_dtype, device)
+        return _attn_zero_cache(cfg, B, max_len, kv_dtype, device, tp)
     if blk.mixer == "rglru":
-        return _rglru_zero_state(cfg, B, dtype, device)
+        return _rglru_zero_state(cfg, B, dtype, device, tp)
     if blk.mixer == "ssm":
-        return _ssm_zero_state(cfg, B, dtype, device)
+        return _ssm_zero_state(cfg, B, dtype, device, tp)
     raise ValueError(blk.mixer)
+
+
+def _check_tp(cfg: ArchConfig, tp: int) -> None:
+    """Raise unless every width a mesh splits over ``"model"`` divides."""
+    mixers = {b.mixer for b in cfg.pattern + cfg.tail}
+    widths = {"vocab": cfg.vocab}
+    if "attn" in mixers:
+        widths.update(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+    if "ssm" in mixers:
+        widths["ssm_d_inner"] = cfg.ssm_d_inner
+    if "rglru" in mixers:
+        widths["rglru_width"] = cfg.rglru_width
+    if any(b.ffn == "dense" for b in cfg.pattern + cfg.tail):
+        widths["d_ff"] = cfg.d_ff
+    bad = {k: v for k, v in widths.items() if v % tp}
+    if bad:
+        raise ValueError(f"{cfg.name}: {bad} do not split over {tp} 'model' "
+                         "ranks (configs.padded_for_tp pads heads and vocab)")
 
 
 def init_cache(cfg: ArchConfig, B: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, kv_int8: bool = False,
-               device=None):
+               device=None, mesh=None):
     """Zeroed decode cache for the whole stack (stacked over groups; the
-    tail's leaves unstacked, ``(B, ...)``).
+    tail's leaves unstacked, ``(B, ...)``).  On ``mesh`` it holds this
+    rank's kv heads and Mamba/RG-LRU channels (the tensor-parallel
+    layers' shares); ``B`` is the rows the caller keeps here.
 
     Windowed-attention blocks still allocate ``max_len`` (correct, not
     minimal: a ring buffer of ``window`` is the memory-optimal layout)."""
+    from .sharding import tp_size
+
     dev = resolve_device(device)
+    tp = tp_size(mesh)
+    _check_tp(cfg, tp)
     kv_dtype = torch.int8 if kv_int8 else dtype
     out = {}
     for i, blk in enumerate(cfg.pattern):
         one = _zero_cache(cfg, blk, cfg.n_groups * B, max_len, dtype,
-                          kv_dtype, dev)
+                          kv_dtype, dev, tp)
         out[f"blk{i}"] = {k: v.reshape((cfg.n_groups, B) + v.shape[1:])
                           for k, v in one.items()}
     if cfg.tail:
         out["tail"] = {f"blk{i}": _zero_cache(cfg, blk, B, max_len, dtype,
-                                              kv_dtype, dev)
+                                              kv_dtype, dev, tp)
                        for i, blk in enumerate(cfg.tail)}
     return out
 
@@ -257,25 +328,30 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int,
 def _block_fwd(cfg, blk: Block, p: Params, x, positions, cache, mode,
                mesh, use_kernels, max_cache_len):
     """One block → (x, new cache, the MoE aux loss or ``None``)."""
+    from .sharding import tp_size
+
     h = L.apply_norm(cfg, p["norm1"], x)
     if blk.mixer == "attn":
         y, new_cache = L.attention_fwd(
             cfg, blk, p["mixer"], h, positions, cache=cache,
             use_kernel=use_kernels, mode=mode, max_cache_len=max_cache_len,
+            mesh=mesh,
         )
     elif blk.mixer == "ssm":
         if mode == "prefill" and cache is None:
-            cache = _ssm_zero_state(cfg, x.shape[0], x.dtype, x.device)
+            cache = _ssm_zero_state(cfg, x.shape[0], x.dtype, x.device,
+                                    tp_size(mesh))
         y, new_cache = L.mamba_fwd(
             cfg, p["mixer"], h, state=cache if mode != "train" else None,
-            use_kernel=use_kernels,
+            use_kernel=use_kernels, mesh=mesh,
         )
     elif blk.mixer == "rglru":
         if mode == "prefill" and cache is None:
-            cache = _rglru_zero_state(cfg, x.shape[0], x.dtype, x.device)
+            cache = _rglru_zero_state(cfg, x.shape[0], x.dtype, x.device,
+                                      tp_size(mesh))
         y, new_cache = L.rglru_fwd(
             cfg, p["mixer"], h, state=cache if mode != "train" else None,
-            use_kernel=use_kernels,
+            use_kernel=use_kernels, mesh=mesh,
         )
     else:
         raise ValueError(blk.mixer)
@@ -290,7 +366,7 @@ def _block_fwd(cfg, blk: Block, p: Params, x, positions, cache, mode,
     x = total.to(dtype)
     aux = None
     if blk.ffn == "dense":
-        x = x + L.mlp_fwd(cfg, p["ffn"], h)
+        x = x + L.mlp_fwd(cfg, p["ffn"], h, mesh=mesh)
     elif blk.ffn == "moe":
         y, aux = L.moe_fwd(cfg, p["ffn"], h, mesh=mesh,
                            use_kernel=use_kernels)
@@ -305,6 +381,54 @@ def _write_back(dst: Dict, new: Optional[Dict]) -> None:
     for k, v in (new or {}).items():
         if v is not dst[k]:
             dst[k].copy_(v)
+
+
+def _at_rest(params: Params, mesh):
+    """(this rank's local tensors, each leaf's gather plan): a DTensor leaf
+    is unwrapped (``to_local``, through which its gradient comes back in
+    its placements), a plain one is taken as this rank's compute layout.
+    Without a mesh: the parameters as they are, no plans."""
+    if mesh is None:
+        def plain(path, a):
+            if hasattr(a, "to_local"):
+                raise ValueError(f"{'/'.join(path)} is a DTensor: pass the "
+                                 "mesh it rests on (mesh=)")
+            return a
+        return _tree_map(plain, params), None
+    from .sharding import gather_plan
+
+    local = _tree_map(lambda _, a: a.to_local() if hasattr(a, "to_local")
+                      else a, params)
+    plans = _tree_map(lambda path, a: gather_plan(
+        a, mesh, -1 if path[0] == "groups" else 0,
+        _PARAM_BLOCKS.get(path[-1], 1)), params)
+    return local, plans
+
+
+def _gathered(tree, plans, mesh):
+    """``tree``'s leaves (one group's, or the tail's) as its layers compute
+    with them: whole along the batch axes, this rank's ``"model"`` shard."""
+    if plans is None:
+        return tree
+    from .sharding import gather_param
+
+    return _tree_map(lambda path, a: gather_param(a, mesh, _at(plans, path)),
+                     tree)
+
+
+def _embed(cfg, w_embed, tokens, mesh):
+    """The embedding lookup; on a mesh vocab parallel: this rank's rows of
+    the table, zeros for the tokens outside them, summed over
+    ``"model"``."""
+    from .sharding import expect_local, local_range, row_out, tp_size
+
+    if tp_size(mesh) == 1:
+        return w_embed[tokens]
+    expect_local(w_embed.shape[0], cfg.vocab, mesh, "vocab rows")
+    lo, hi = local_range(w_embed.shape[0], mesh)
+    inside = (tokens >= lo) & (tokens < hi)
+    rows = w_embed[(tokens - lo).clamp(0, hi - lo - 1)]
+    return row_out(torch.where(inside[..., None], rows, 0.0), mesh)
 
 
 def forward(
@@ -324,7 +448,8 @@ def forward(
     stub-frontend archs — ``embeds`` (B, T, d), and optionally
     ``positions``.  Returns (float32 logits, cache, aux_loss): the new
     cache in ``prefill`` mode, ``cache`` itself updated in place in
-    ``decode`` mode, ``None`` in ``train`` mode.
+    ``decode`` mode, ``None`` in ``train`` mode.  On a mesh the logits are
+    this rank's vocab shard.
 
     ``compute_dtype`` (default: the parameters' own) casts the embedding,
     the unembedding and every float32 group and tail parameter to it, as
@@ -333,17 +458,24 @@ def forward(
     ``torch.utils.checkpoint``: the reference's
     ``jax.checkpoint(nothing_saveable)`` per group, which keeps only the
     residual stream between groups and recomputes each group's insides,
-    the attention blocks included, in the backward pass."""
+    the attention blocks and the parameter gathers included, in the
+    backward pass."""
+    from .sharding import column_in, expect_local, local_range
+
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a cache")
     cd = compute_dtype
-    w_embed = params["embed"] if cd is None else params["embed"].to(cd)
+    local, plans = _at_rest(params, mesh)
+    sub = (lambda key: None) if plans is None else (lambda key: plans[key])
+    w_embed = _gathered(local["embed"], sub("embed"), mesh)
+    if cd is not None:
+        w_embed = w_embed.to(cd)
     if cfg.frontend == "embed" and "embeds" in batch:
         x = batch["embeds"].to(w_embed.dtype)
     else:
-        x = w_embed[batch["tokens"].long()]
+        x = _embed(cfg, w_embed, batch["tokens"].long(), mesh)
     x = shard(x, "act_batch", "act_seq", "act_embed")
     B, T = x.shape[:2]
 
@@ -354,10 +486,11 @@ def forward(
 
     # each stacked leaf split once into its groups' views (unbind's backward
     # stacks the groups' gradients in one buffer)
-    groups = _tree_map(lambda _, a: a.unbind(0), params["groups"])
+    groups = _tree_map(lambda _, a: a.unbind(0), local["groups"])
 
     def group_fwd(x, g):
-        gp = _tree_map(lambda _, a: a[g], groups)
+        gp = _gathered(_tree_map(lambda _, a: a[g], groups), sub("groups"),
+                       mesh)
         if cd is not None:
             gp = _cast_f32(gp, cd)
         aux_g, new = None, {}
@@ -397,7 +530,9 @@ def forward(
         new_cache = cache
 
     if cfg.tail:
-        tail = params["tail"] if cd is None else _cast_f32(params["tail"], cd)
+        tail = _gathered(local["tail"], sub("tail"), mesh)
+        if cd is not None:
+            tail = _cast_f32(tail, cd)
         tail_new = {}
         for i, blk in enumerate(cfg.tail):
             name = f"blk{i}"
@@ -416,17 +551,47 @@ def forward(
     if last_only:
         # serving prefill: only the last position's logits are consumed
         x = x[:, -1:]
-    x = L.apply_norm(cfg, params["final_norm"], x)
+    x = L.apply_norm(cfg, _gathered(local["final_norm"], sub("final_norm"),
+                                    mesh), x)
     if cfg.tie_embeddings:
         w_out = w_embed
     else:
-        w_out = params["unembed"] if cd is None else params["unembed"].to(cd)
-    logits = torch.matmul(x.to(w_out.dtype), w_out.t()).float()
+        w_out = _gathered(local["unembed"], sub("unembed"), mesh)
+        if cd is not None:
+            w_out = w_out.to(cd)
+    # vocab parallel on a mesh: this rank's rows of the unembedding
+    expect_local(w_out.shape[0], cfg.vocab, mesh, "vocab rows")
+    logits = torch.matmul(column_in(x, mesh).to(w_out.dtype),
+                          w_out.t()).float()
     if cfg.vocab_real is not None and cfg.vocab_real < cfg.vocab:
-        # TP-padded vocab rows must never win a softmax (exact semantics)
-        logits[..., cfg.vocab_real:] = -1e9
+        # TP-padded vocab rows must never win a softmax (exact semantics),
+        # masked at their global indices
+        lo, hi = local_range(w_out.shape[0], mesh)
+        if cfg.vocab_real < hi:
+            logits[..., max(cfg.vocab_real - lo, 0):] = -1e9
     logits = shard(logits, "act_batch", "act_seq", "act_vocab")
     return logits, new_cache, aux
+
+
+def _cross_entropy_terms(logits, labels, mesh):
+    """(logsumexp over the vocabulary, the label's logit) per position.  On
+    a mesh the logits are this rank's vocab shard: the maximum and the sum
+    of exponentials are reduced over ``"model"``, and the label's logit is
+    a masked local gather summed over ``"model"`` (the reference's masked
+    sum over the vocabulary is there for this)."""
+    from .sharding import local_range, max_over, row_out, tp_size
+
+    safe = labels.clamp(min=0)
+    if tp_size(mesh) == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        return logz, logits.gather(-1, safe[..., None])[..., 0]
+    m = max_over(logits.amax(dim=-1), mesh, "model")
+    logz = m + torch.log(row_out(torch.exp(logits - m[..., None]).sum(dim=-1),
+                                 mesh))
+    lo, hi = local_range(logits.shape[-1], mesh)
+    inside = (safe >= lo) & (safe < hi)
+    ll = logits.gather(-1, (safe - lo).clamp(0, hi - lo - 1)[..., None])[..., 0]
+    return logz, row_out(torch.where(inside, ll, 0.0), mesh)
 
 
 def loss_fn(
@@ -441,19 +606,20 @@ def loss_fn(
 ):
     """Next-token cross entropy (+ router aux loss + z-loss).  Labels come
     from ``batch['labels']``; positions where ``labels < 0`` are masked.
-    Returns ``(total, {"ce", "z_loss", "aux", "tokens"})``.
+    Returns ``(total, {"ce", "z_loss", "aux", "tokens"})``: on a mesh this
+    rank's rows' loss (the step averages it over the batch axes).
 
     The label's logit is taken with ``gather``; the reference's masked sum
     over the vocabulary (``where(iota == label)``, there so that the
     vocab-sharded logits reduce locally) gives the same value, and would
-    cost a (B, T, V) float32 temporary on one card."""
+    cost a (B, T, V) float32 temporary on one card.  On a mesh the gather
+    is masked to this rank's vocab shard and summed over ``"model"``."""
     logits, _, aux = forward(cfg, params, batch, mode="train", mesh=mesh,
                              use_kernels=use_kernels,
                              compute_dtype=compute_dtype, remat=remat)
     labels = batch["labels"].long()
     valid = (labels >= 0).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    logz, ll = _cross_entropy_terms(logits, labels, mesh)
     nll = (logz - ll) * valid
     denom = valid.sum().clamp(min=1.0)
     ce = nll.sum() / denom

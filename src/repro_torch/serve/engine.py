@@ -25,6 +25,21 @@ from the reference, on purpose:
 * sampling at ``temperature > 0`` draws from the engine's
   ``torch.Generator`` seeded with ``ServeConfig.seed``: not ``jax.random``'s
   bits.
+
+``ServeEngine(..., mesh=)`` serves on a ``DeviceMesh`` with a ``"model"``
+dim, as the reference's engine takes one.  Every rank of the mesh runs the
+same loop on the same requests:
+
+* the parameters rest as the active rules place them
+  (:func:`repro_torch.models.model.place_params`; ``INFERENCE_RULES``
+  replicate them over ``"data"``), every layer tensor parallel;
+* the cache's slots go over the batch axes where they divide (else every
+  rank holds them all), its kv heads and Mamba/RG-LRU channels over
+  ``"model"``;
+* an admission's prefill (one request) runs on every rank, and the rank
+  holding the slot keeps its cache; a decode step advances this rank's
+  slots, and the next-token logits are assembled over ``"model"`` and the
+  batch axes, so every rank samples every slot alike.
 """
 from __future__ import annotations
 
@@ -36,6 +51,7 @@ import torch
 
 from .._device import resolve_device
 from ..models import model as M
+from ..models import sharding as S
 from ..models.config import ArchConfig
 
 __all__ = ["Request", "ServeConfig", "ServeEngine"]
@@ -64,18 +80,35 @@ class ServeConfig:
 
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig,
-                 device=None):
+                 device=None, mesh=None):
+        """``params`` whole (alike on every rank with ``mesh``); ``cfg``
+        padded for the mesh's ``"model"`` ranks
+        (``configs.padded_for_tp``)."""
         if cfg.frontend is not None:
             raise ValueError(f"{cfg.name}: the serving loop drives token-in "
                              "archs")
         self.device = resolve_device(device)
-        self.cfg, self.scfg = cfg, scfg
+        self.cfg, self.scfg, self.mesh = cfg, scfg, mesh
         # the reference casts the weights to compute_dtype on every call;
         # here once (a no-op for parameters already in it)
         self.params = M.cast_params(params, scfg.compute_dtype, self.device)
+        # this rank's slots: [lo, lo + rows)
+        self.batch_axes = tuple(a for a in S.BATCH_AXES
+                                if S.axis_size(mesh, a) > 1)
+        nb, index = 1, 0
+        for a in self.batch_axes:
+            nb, index = nb * S.axis_size(mesh, a), (
+                index * S.axis_size(mesh, a) + S.axis_rank(mesh, a))
+        if scfg.slots % nb:
+            nb, index, self.batch_axes = 1, 0, ()
+        self.rows = scfg.slots // nb
+        self.lo = index * self.rows
+        if mesh is not None:
+            self.params = M.place_params(cfg, self.params, mesh)
         # float32 whatever the compute dtype, as in the reference
-        self.cache = M.init_cache(cfg, scfg.slots, scfg.max_len,
-                                  dtype=torch.float32, device=self.device)
+        self.cache = M.init_cache(cfg, self.rows, scfg.max_len,
+                                  dtype=torch.float32, device=self.device,
+                                  mesh=mesh)
         self.slot_req: List[Optional[Request]] = [None] * scfg.slots
         self.slot_pos = np.zeros(scfg.slots, np.int64)
         self.pending: List[Request] = []
@@ -106,7 +139,11 @@ class ServeEngine:
 
     def _merge(self, s: int, one) -> None:
         """Write the B=1 prefill cache ``one`` into slot ``s`` of the shared
-        cache, each leaf on its own slot axis; other slots are untouched."""
+        cache, each leaf on its own slot axis; other slots are untouched.
+        On a mesh, only the rank that holds slot ``s`` keeps it."""
+        if not self.lo <= s < self.lo + self.rows:
+            return
+        s -= self.lo
         for name, leaves in self.cache.items():
             if name == "tail":
                 for blk, tail_leaves in leaves.items():
@@ -130,9 +167,11 @@ class ServeEngine:
         logits, cache1, _ = M.prefill(
             self.cfg, self.params, {"tokens": tokens},
             max_cache_len=self.scfg.max_len, use_kernels=self.scfg.use_kernels,
+            mesh=self.mesh,
         )
         self._merge(s, cache1)
-        req.output.append(int(torch.argmax(logits[0, T - 1])))
+        last = S.assemble(logits[0, T - 1], self.mesh, ("model",), 0)
+        req.output.append(int(torch.argmax(last)))
         req.ttft_steps = self.step_count + 1
         self.slot_req[s] = req
         self.slot_pos[s] = T
@@ -146,13 +185,17 @@ class ServeEngine:
         for s in active:
             tokens[s, 0] = self.slot_req[s].output[-1]
             positions[s, 0] = self.slot_pos[s]
+        mine = slice(self.lo, self.lo + self.rows)
         logits, _, _ = M.decode_step(
             self.cfg, self.params,
-            {"tokens": torch.as_tensor(tokens, device=self.device),
-             "positions": torch.as_tensor(positions, device=self.device)},
-            self.cache, use_kernels=self.scfg.use_kernels,
+            {"tokens": torch.as_tensor(tokens[mine], device=self.device),
+             "positions": torch.as_tensor(positions[mine],
+                                          device=self.device)},
+            self.cache, use_kernels=self.scfg.use_kernels, mesh=self.mesh,
         )
-        logits = logits[:, -1]
+        # every slot's whole logits on every rank
+        logits = S.assemble(S.assemble(logits[:, -1], self.mesh, ("model",),
+                                       1), self.mesh, self.batch_axes, 0)
         greedy = logits.argmax(dim=-1).tolist()
         self.step_count += 1
         done: List[Request] = []

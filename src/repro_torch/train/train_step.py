@@ -8,25 +8,29 @@ parameters' leaves.
 
 On a mesh (``mesh=``, a ``DeviceMesh`` over the default process group)
 the state is DTensors placed by :func:`state_shardings`: FSDP over
-``data``, TP/EP over ``model``, moments and residuals like their
-parameters.  A step gathers each parameter in full (DTensor's all-gather),
-computes the loss and its gradients on this rank's rows of the batch (its
-shard over the batch axes; the MoE FFNs expert parallel over ``model``),
-and hands the gradients back to DTensor as partial values averaged over
-the batch axes: redistributing them to the parameters' placements is the
-reduce-scatter, and AdamW then runs on the DTensors, DTensor's sharding
-propagation doing the reductions of the global gradient norm.
+``data``, tensor and expert parallel over ``model``, moments and
+residuals like their parameters.  The step hands the parameters to the
+model as they rest: :func:`repro_torch.models.model.forward` gathers one
+group's parameters over ``data`` when the group runs (and again in
+remat's recompute), every dense layer computes on this rank's ``model``
+shard, and the loss is this rank's rows' (its shard of the batch over
+the batch axes).  The gradients come back from autograd in the
+parameters' placements: the gathers' backward reduce-scatters them over
+``data`` and averages them over ``pod`` (and over ``data`` for a leaf
+replicated there), and along ``model`` each rank's shard has its own.
+AdamW then runs on the DTensors, DTensor's sharding propagation doing
+the reductions of the global gradient norm.  No step gathers the whole
+parameter tree.
 
 With gradient compression on a mesh, the step compresses what one device
-compresses: the averaged global gradient of each leaf, whole.  The
-partial gradients are all-reduced to every rank (in place of the
-reduce-scatter), each residual is all-gathered, and every rank runs
-``ef_compress_tree`` over the full leaves with the generator seeded alike
-(so each leaf's per-row scales and noise are the one-device draws), then
-keeps its own shard of the result and of the new residual (a local
-slice).  Per step and rank that is an all-reduce of the float32
-gradients and an all-gather of the residuals, each the size of the
-parameters, where the uncompressed step reduce-scatters once.
+compresses: the averaged global gradient of each leaf, whole.  Each
+gradient and each residual is all-gathered, every rank runs
+``ef_compress_tree`` over the whole leaves with the generator seeded
+alike (so each leaf's per-row scales and noise are the one-device draws),
+then keeps its own shard of the result and of the new residual (a local
+slice).  Per step and rank that is an all-gather of the float32
+gradients and one of the residuals, each the size of the parameters, on
+top of the uncompressed step's reduce-scatters.
 """
 from __future__ import annotations
 
@@ -107,8 +111,7 @@ def state_shardings(cfg: ArchConfig, state: TrainState, mesh) -> TrainState:
     tensor (``None``)."""
     from ..models.sharding import NamedSharding
 
-    pspecs = M.param_shardings(cfg, state.params)
-    named = M._tree_map(lambda _, s: NamedSharding.of(mesh, s), pspecs)
+    named = M.param_named_shardings(cfg, state.params, mesh)
     rep = NamedSharding.of(mesh, ())
 
     def like_params(tree):
@@ -187,52 +190,22 @@ def make_train_step(
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 M._tree_map(lambda *_: next(gs), leaves))
 
-    def gathered(state: TrainState):
-        """The parameters in full on this rank (DTensor's all-gather)."""
-        return M._tree_map(lambda _, a: a.full_tensor(), state.params)
-
-    def reduced(grads, state: TrainState, axes, whole=False):
-        """Each rank's full gradients, averaged over the batch axes and
-        placed as their parameters are (a reduce-scatter), or replicated
-        on every rank (``whole``: an all-reduce).  Along ``"model"`` every
-        rank holds the same gradient, but for the experts of an
-        expert-parallel MoE, where each rank holds its own experts' rows:
-        those are summed."""
-        from torch.distributed.tensor import DTensor, Partial, Replicate
-
-        def partial(experts):
-            return [Partial("avg") if name in axes
-                    else Partial("sum") if name == "model" and experts
-                    else Replicate() for name in mesh.mesh_dim_names]
-
-        def place(path, g):
-            if g is None:
-                return None
-            p = tree_get(state.params, path)
-            experts = (path[-1] in ("w_gate", "w_up", "w_down")
-                       and p.ndim - (path[0] == "groups") == 3)
-            to = [Replicate()] * mesh.ndim if whole else p.placements
-            return DTensor.from_local(g, mesh, partial(experts)).redistribute(
-                mesh, to)
-        return M._tree_map(place, grads)
-
     def compressed_on_mesh(grads, state: TrainState, gen):
-        """``ef_compress_tree`` over the whole averaged gradients (replicated
-        DTensors) and the whole residuals, alike on every rank; each rank
+        """``ef_compress_tree`` over the whole averaged gradients and the
+        whole residuals (all-gathered), alike on every rank; each rank
         keeps its shards of both results."""
-        from torch.distributed.tensor import DTensor, Replicate
+        from ..models.sharding import NamedSharding
 
-        whole = M._tree_map(lambda _, g: g if g is None else g.to_local(),
-                            grads)
-        residual = M._tree_map(lambda _, r: r.full_tensor(), state.residual)
-        out, res = ef_compress_tree(whole, residual, gen,
+        def whole(tree):
+            return M._tree_map(lambda _, a: a if a is None
+                               else a.full_tensor(), tree)
+        out, res = ef_compress_tree(whole(grads), whole(state.residual), gen,
                                     kind=tcfg.compression)
 
         def like(tree, ref):
-            # a replicated value's shard is a local slice: no communication
-            return M._tree_map(lambda path, a: DTensor.from_local(
-                a, mesh, [Replicate()] * mesh.ndim).redistribute(
-                    mesh, tree_get(ref, path).placements), tree)
+            # a whole value's shard is a local slice: no communication
+            return M._tree_map(lambda path, a: NamedSharding(
+                mesh, tuple(tree_get(ref, path).placements)).place(a), tree)
         return like(out, state.params), like(res, state.residual)
 
     def train_step(state: TrainState, batch):
@@ -240,7 +213,6 @@ def make_train_step(
         params = state.params
         if mesh is not None:
             batch, axes = _local_rows(batch, mesh)
-            params = gathered(state)
         k = tcfg.microbatches
         if k > 1:
             parts = {name: a.reshape((k, a.shape[0] // k) + a.shape[1:])
@@ -262,7 +234,6 @@ def make_train_step(
         if mesh is not None:
             from ..models.sharding import mean_over, sum_over
 
-            grads = reduced(grads, state, axes, whole=compress)
             # the global batch's loss: every shard holds as many tokens
             loss = mean_over(loss, mesh, axes)
             tokens = metrics["tokens"]
