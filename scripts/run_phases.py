@@ -12,7 +12,7 @@ RecurrentGemma-9B, ``6a`` its kernels against their plain versions, ``7``
 serving Falcon-Mamba-7B, ``8a`` ``mamba_scan`` against its plain version,
 ``14`` the planner in multi-device training, ``15`` the dry run at the
 production meshes, held to the card, ``16`` the tensor-parallel layout on
-two processes sharing the card, after phase 1 (the card's name and
+two processes sharing the card, ``17`` the port's examples, after phase 1 (the card's name and
 power limit, and the kernels built).  Phases 6a and 8a run on
 stand-in launch counts (they print their kernels-line entries).  Needs a
 CUDA card.
@@ -26,7 +26,7 @@ from pathlib import Path
 ap = argparse.ArgumentParser()
 ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
 ap.add_argument("phases", nargs="+", choices=["5", "6a", "7", "8a", "14", "15",
-                                              "16"])
+                                              "16", "17"])
 args = ap.parse_args()
 tree = Path(args.tree).resolve()
 sys.path[:0] = [str(tree), str(tree / "src")]
@@ -59,6 +59,8 @@ for phase in args.phases:
         print(json.dumps(C.phase_multidevice(device)[0], default=str))
     elif phase == "16":
         print(json.dumps(C.phase_tensor_parallel(device)))
+    elif phase == "17":
+        print(json.dumps(C.phase_examples(device)))
     else:
         print(json.dumps(C.phase_dryrun(device)[1], default=str))
     C.free_device_memory(device)

@@ -289,13 +289,26 @@ runpy.run_path({str(ROOT / "examples" / "port_plan_multipod_training.py")!r},
     assert "MoE dispatch" in proc.stdout
 
 
-@pytest.mark.parametrize("example,expect", [
+#: the port's examples and a line each prints when it ran to its end
+PORT_EXAMPLES = [
     ("port_quickstart.py", "end-to-end multi-phase plan reduces makespan"),
     ("port_wordcount.py", "optimized plan beats the Hadoop-locality"),
-])
+    ("port_multijob.py", "joint planning reduces the executed aggregate"),
+    ("port_online.py", "co-replanning beats the frozen joint plan"),
+    ("port_pipeline.py", "end-to-end planning cuts the simulated pipeline"),
+    ("port_planner_service.py", "modeled worse than the incumbent"),
+    ("port_serve_lm.py", "12 requests, 192 tokens"),
+    ("port_train_lm.py", "[train] done"),
+]
+
+
+@pytest.mark.parametrize("example,expect", PORT_EXAMPLES)
 def test_port_example_runs_without_jax(tmp_path, example, expect):
-    """The port's quickstart and word-count examples run on the CPU with
-    jax and the reference blocked."""
+    """The port's examples run on the CPU with jax and the reference
+    blocked (the training example for 2 steps, into ``tmp_path``)."""
+    argv = ["--device", "cpu"]
+    if example == "port_train_lm.py":
+        argv += ["--steps", "2", "--ckpt-dir", str(tmp_path / "ckpt")]
     script = f"""
 import importlib.abc, runpy, sys
 
@@ -306,7 +319,9 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
-sys.argv = [{example!r}, "--device", "cpu"]
+import torch
+torch.set_num_threads(1)
+sys.argv = [{example!r}] + {argv!r}
 runpy.run_path({str(ROOT / "examples" / example)!r}, run_name="__main__")
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -315,6 +330,19 @@ runpy.run_path({str(ROOT / "examples" / example)!r}, run_name="__main__")
                           cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     assert expect in proc.stdout
+
+
+@pytest.mark.parametrize("example", [e for e, _ in PORT_EXAMPLES])
+def test_port_example_raises_without_cuda(no_cuda, monkeypatch, tmp_path,
+                                          example):
+    """Every example defaults to the card, with no CPU fallback."""
+    import runpy
+
+    monkeypatch.setattr(sys, "argv", [example, "--ckpt-dir",
+                                      str(tmp_path / "ckpt")]
+                        if example == "port_train_lm.py" else [example])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        runpy.run_path(str(ROOT / "examples" / example), run_name="__main__")
 
 
 def test_dryrun_cli_raises_without_cuda(no_cuda, tmp_path):
