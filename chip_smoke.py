@@ -55,8 +55,8 @@ Phases:
    33 chunks; and two calls equal bit for bit), with both ``rglru_scan``
    kernels' ``ptxas`` registers and spills, device times summed over its
    two passes and the launches of each a call as the profiler recorded
-   them (both at the prefill, the rescan alone at a decode step), and
-   times (for
+   them in a process of its own (both at the prefill, the rescan alone
+   at a decode step), and times (for
    ``flash_attention`` also one call alone: CUDA events around a single
    launch after a synchronize, median of 20; the launches queued on the
    card behind a sleep kernel; and the CUDA-core kernel that served bf16
@@ -264,6 +264,9 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+#: dense TF32 tensor-core operations/s (same data sheet); float32 attention
+#: at float32 accuracy takes three TF32 products for each one (split-TF32)
+TF32_OPS_PER_S = 495e12
 
 #: the reference's kernel tolerances (tests/test_kernels.py:19-20): the
 #: kernels sum in another order than their plain versions
@@ -528,6 +531,11 @@ def segment_sum_bound_ms(n_kept: int, n: int, d: int, s: int, elem: int):
 #: the bf16 tensor-core attention kernel, by the name its instantiations
 #: carry in the build log and the SASS
 FLASH_WGMMA = "flash_attention_kernel_wgmma"
+#: the float32 split-TF32 tensor-core kernel, by the name its
+#: instantiations carry in the build log, the SASS and the profiler
+FLASH_F32 = "flash_attention_kernel_tf32x3"
+#: the CUDA-core kernel's float32 instantiations, demangled or not
+FLASH_F32_BEFORE = ("flash_attention_kernel<float", "flash_attention_kernelIf")
 
 
 def ptxas_usage(log: str):
@@ -549,7 +557,7 @@ def ptxas_usage(log: str):
     return usage
 
 
-def sass_counts(so: Path, opcodes=("HGMMA", "UTMALDG")):
+def sass_counts(so: Path, opcodes=("HGMMA", "UTMALDG", "HMMA")):
     """{function: {opcode: count}} in the SASS of a built library, from
     ``cuobjdump -sass``; ``None`` where the toolkit has no ``cuobjdump``."""
     import os
@@ -584,35 +592,45 @@ def _dh(mangled: str) -> str:
 
 
 def check_flash_build(so: Path):
-    """Registers and spills of the bf16 tensor-core instantiations, and
-    their wgmma (HGMMA) and TMA (UTMALDG) instructions; fails if a bf16
-    tensor-core kernel has no HGMMA.  Returns what it read."""
+    """Registers and spills of the tensor-core instantiations, bf16
+    (``wgmma``) and float32 (split-TF32 ``mma.sync``), and their
+    tensor-core (HGMMA, HMMA) and TMA (UTMALDG) instructions; fails if a
+    bf16 kernel has no HGMMA or a float32 one no HMMA.  Returns what it
+    read, by kernel and head width."""
     from repro_torch.kernels import _build
 
-    usage = {fn: u for fn, u in ptxas_usage(_build.build_log("flash_attention"))
-             .items() if FLASH_WGMMA in fn}
-    check(usage, f"the build log lists no {FLASH_WGMMA} instantiation")
-    found = {}
-    for fn, (regs, st, ld) in sorted(usage.items(), key=lambda kv: int(_dh(kv[0]))):
-        found[_dh(fn)] = {"registers": regs, "spill_store_bytes": st,
-                          "spill_load_bytes": ld}
-        print(f"{FLASH_WGMMA}<Dh {_dh(fn)}>: {regs} registers, spill stores "
-              f"{st} B, spill loads {ld} B")
+    log = ptxas_usage(_build.build_log("flash_attention"))
     counts = sass_counts(so)
     if counts is None:
         print("cuobjdump not found next to nvcc: the SASS check of HGMMA "
-              "instructions is skipped")
-        return found
-    wgmma = {fn: c for fn, c in counts.items() if FLASH_WGMMA in fn}
-    check(wgmma, f"the SASS of {so.name} has no {FLASH_WGMMA} function")
-    for fn, c in sorted(wgmma.items(), key=lambda kv: int(_dh(kv[0]))):
-        print(f"{FLASH_WGMMA}<Dh {_dh(fn)}> SASS: {c['HGMMA']} HGMMA, "
-              f"{c['UTMALDG']} UTMALDG")
-        check(c["HGMMA"] > 0, f"{FLASH_WGMMA}<Dh {_dh(fn)}> has no HGMMA "
-              "instruction: the bf16 kernel does not run on the tensor cores")
-        found[_dh(fn)].update(c)
-    core = sum(c["HGMMA"] for fn, c in counts.items() if FLASH_WGMMA not in fn)
-    print(f"HGMMA in the CUDA-core flash_attention_kernel instantiations: {core}")
+              "and HMMA instructions is skipped")
+    found = {}
+    for kernel, op in ((FLASH_WGMMA, "HGMMA"), (FLASH_F32, "HMMA")):
+        usage = {fn: u for fn, u in log.items() if kernel in fn}
+        check(usage, f"the build log lists no {kernel} instantiation")
+        found[kernel] = {}
+        for fn, (regs, st, ld) in sorted(usage.items(),
+                                         key=lambda kv: int(_dh(kv[0]))):
+            found[kernel][_dh(fn)] = {"registers": regs,
+                                      "spill_store_bytes": st,
+                                      "spill_load_bytes": ld}
+            print(f"{kernel}<Dh {_dh(fn)}>: {regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B")
+        if counts is None:
+            continue
+        sass = {fn: c for fn, c in counts.items() if kernel in fn}
+        check(sass, f"the SASS of {so.name} has no {kernel} function")
+        for fn, c in sorted(sass.items(), key=lambda kv: int(_dh(kv[0]))):
+            print(f"{kernel}<Dh {_dh(fn)}> SASS: {c['HGMMA']} HGMMA, "
+                  f"{c['HMMA']} HMMA, {c['UTMALDG']} UTMALDG")
+            check(c[op] > 0, f"{kernel}<Dh {_dh(fn)}> has no {op} instruction: "
+                  "it does not run on the tensor cores")
+            found[kernel].setdefault(_dh(fn), {}).update(c)
+    if counts is not None:
+        core = sum(c["HGMMA"] + c["HMMA"] for fn, c in counts.items()
+                   if FLASH_WGMMA not in fn and FLASH_F32 not in fn)
+        print(f"HGMMA and HMMA in the CUDA-core flash_attention_kernel "
+              f"instantiations: {core}")
     return found
 
 
@@ -1225,51 +1243,150 @@ def live_pairs(t_len, s_len, causal, window, q_offset):
     return total
 
 
-def flash_bound_ms(q, k, causal, window, q_offset):
-    """Least time: q, k, v read once and the output written once, against
-    2·Dh multiply-adds (QKᵀ and PV) per live pair and head."""
+def flash_floors(q, k, causal, window, q_offset):
+    """The floors of one call: q, k, v read once and the output written
+    once at HBM rate (``bytes_ms``), and 2·Dh multiply-adds (QKᵀ and PV)
+    per live pair and head at the rate of the route's arithmetic: bf16
+    tensor cores (``ops_ms``); float32 as three TF32 products
+    (``split_tf32_ms``, the float32 route's ``ops_ms``) and, beside it, on
+    the CUDA cores (``cuda_core_ms``)."""
     B, Hq, T, Dh = q.shape
     S = k.shape[2]
     elem = q.element_size()
     n_bytes = (2 * B * Hq * T * Dh + 2 * k.numel()) * elem
     ops = 4 * Dh * B * Hq * live_pairs(T, S, causal, window, q_offset)
-    rate = BF16_OPS_PER_S if elem == 2 else F32_OPS_PER_S
-    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    floors = {"bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "operations": ops}
+    if elem == 2:
+        floors["ops_ms"] = ops / BF16_OPS_PER_S * 1e3
+    else:
+        floors["split_tf32_ms"] = 3 * ops / TF32_OPS_PER_S * 1e3
+        floors["cuda_core_ms"] = ops / F32_OPS_PER_S * 1e3
+        floors["ops_ms"] = floors["split_tf32_ms"]
+    return floors
 
 
-def flash_timings(q, k, v, window, causal=True):
-    """bf16 flash_attention at a served shape, timed five ways: the wrapper
-    back to back, the profiler's device time per launch, one call alone,
-    the launches queued on the card; and the CUDA-core kernel that served
-    the shape before (its C entry called directly: no launch is counted)
-    back to back and queued."""
+def flash_bound_ms(q, k, causal, window, q_offset):
+    """Least time: the larger of ``flash_floors``' bytes and operations
+    (float32: the split-TF32 floor)."""
+    f = flash_floors(q, k, causal, window, q_offset)
+    return ((f["bytes_ms"], "bytes") if f["bytes_ms"] >= f["ops_ms"]
+            else (f["ops_ms"], "operations"))
+
+
+def cuda_core_attention(q, k, v, causal=True, window=None, q_offset=0):
+    """Attention on the CUDA-core kernel, in q's dtype, its C entry called
+    directly, so no launch is counted: the kernel that served the bf16
+    widths before the ``wgmma`` kernel and float32 before the split-TF32
+    one (no path of the port reaches its float32 entry)."""
     import torch
-    from repro_torch.kernels.flash_attention import _kernel, flash_attention
+    from repro_torch.kernels.flash_attention import _kernel
+
+    entry = ("flash_attention_f32" if q.dtype == torch.float32
+             else "flash_attention_bf16")
+    out = torch.empty_like(q)
+    B, Hq, T, Dh = q.shape
+    rc = _kernel(entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
+        k.shape[1], T, k.shape[2], Dh, int(causal),
+        -1 if window is None else window, q_offset, Dh ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the CUDA-core flash_attention kernel failed: {rc}")
+    return out
+
+
+def sdpa_backend(sdpa, out):
+    """The SDPA backends that, each alone, give ``out`` bit for bit: those
+    of them the default dispatch may have chosen for the call ``sdpa``."""
+    import warnings
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = []
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                got = sdpa()
+        except RuntimeError:  # this backend cannot serve the call
+            continue
+        if torch.equal(got, out):
+            names.append(name)
+    return "/".join(names) or "none alone"
+
+
+def flash_timings(q, k, v, window, sdpa, causal=True):
+    """flash_attention at a served shape, in q's dtype: the wrapper timed
+    four ways (back to back, the profiler's device time per launch, one
+    call alone, queued on the card); the CUDA-core kernel that served the
+    shape before (``cuda_core_attention``) back to back and queued, held to
+    the dtype's bar; the plain version; the library call ``sdpa`` (TF32
+    off) back to back and queued, its max |err| against the plain version
+    and the SDPA backend that served it; and the bound (float32: the
+    split-TF32 floor, with the CUDA-core and bytes floors printed beside
+    it)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = q.dtype == torch.float32
 
     def run():
         return flash_attention(q, k, v, causal=causal, window=window)
 
     def cuda_core():
-        out = torch.empty_like(q)
-        B, Hq, T, Dh = q.shape
-        rc = _kernel("flash_attention_bf16")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-            k.shape[1], T, k.shape[2], Dh, int(causal),
-            -1 if window is None else window, 0, Dh ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"the CUDA-core flash_attention kernel failed: {rc}")
-        return out
+        return cuda_core_attention(q, k, v, causal, window)
 
-    return {
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    ok, core_err = _close(cuda_core(), want, *KERNEL_TOL[str(q.dtype)])
+    check(ok, f"the CUDA-core {q.dtype} kernel: max |err| {core_err}")
+    library_out = sdpa()
+    library_err = _close(library_out, want, 0.0, 0.0)[1]
+    backend = sdpa_backend(sdpa, library_out)
+    del want, library_out
+    bound, bound_by = flash_bound_ms(q, k, causal, window, 0)
+    times = {
         "ms": time_ms(run, runs=10, per_run=5),
-        "kernel_device_ms": kernel_device_ms(run, "flash_attention_kernel",
-                                             calls=5),
+        "kernel_device_ms": kernel_device_ms(
+            run, FLASH_F32 if f32 else "flash_attention_kernel", calls=5),
         "alone_ms": time_alone_ms(run),
         "queued_ms": time_queued_ms(run),
         "cuda_core_ms": time_ms(cuda_core, runs=3, per_run=3, warmup=1),
         "cuda_core_queued_ms": time_queued_ms(cuda_core, calls=5),
+        "cuda_core_max_abs_err": core_err,
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=causal,
+                                                  window=window),
+                            runs=5, per_run=1, warmup=1),
+        "library_ms": time_ms(sdpa, runs=10, per_run=5),
+        "library_queued_ms": time_queued_ms(sdpa),
+        "library_max_abs_err": library_err,
+        "library_backend": backend,
+        "bound_ms": bound, "bound_by": bound_by,
     }
+    floors = flash_floors(q, k, causal, window, 0)
+    bound_text = (f"bound (split-TF32: 3 x {floors['operations']!r} operations"
+                  f" at 495 TFLOP/s) {floors['split_tf32_ms']!r} ms  CUDA-core"
+                  f" floor (67 TFLOP/s) {floors['cuda_core_ms']!r} ms  bytes "
+                  f"floor {floors['bytes_ms']!r} ms" if f32 else
+                  f"bound {bound!r} ms ({bound_by})")
+    B, Hq, T, Dh = q.shape
+    print(f"timing flash_attention ({B},{Hq},{T},{Dh}) Hkv {k.shape[1]} "
+          f"window {window} causal {causal} {q.dtype}: wrapper "
+          f"{times['ms']!r} ms  kernel (device) {times['kernel_device_ms']!r}"
+          f" ms  one call alone (events) {times['alone_ms']!r} ms  queued on "
+          f"the card {times['queued_ms']!r} ms  CUDA-core kernel "
+          f"{times['cuda_core_ms']!r} ms (queued "
+          f"{times['cuda_core_queued_ms']!r}, max |err| {core_err!r})  plain "
+          f"{times['plain_ms']!r} ms  library (sdpa, TF32 off, backend "
+          f"{backend}) {times['library_ms']!r} ms (queued "
+          f"{times['library_queued_ms']!r}, max |err| {library_err!r})  "
+          f"{bound_text}")
+    return times
 
 
 def rglru_bound_ms(x, has_h0):
@@ -1400,38 +1517,31 @@ def phase_lm_kernels(device, launches, lengths=(17, 2049, 3000), hq=16, dh=256,
     # gating reach its scan unrounded), and the decode step, whose
     # recurrence runs in float32 (the float32 serving cache promotes it, as
     # in the reference); the bf16 prefill as the kernel served it before
-    q, k, v = timed[("flash_attention", torch.bfloat16)]
-    t_len = q.shape[2]
+    t_len = max(lengths)
     mask = torch.ones(t_len, t_len, dtype=torch.bool, device=device).tril()
     mask &= ~torch.ones_like(mask).tril(-window)
-    kx, vx = k.expand(q.shape), v.expand(q.shape)  # MQA as views
-    times = flash_timings(q, k, v, window)
-    ms, dev_ms = times["ms"], times["kernel_device_ms"]
-    plain = time_ms(lambda: attention_ref(q, k, v, window=window), runs=5,
-                    per_run=1, warmup=1)
-    def sdpa():
-        return F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask)
-
-    library = time_ms(sdpa, runs=10, per_run=5)
-    times["library_queued_ms"] = time_queued_ms(sdpa)
-    bound, bound_by = flash_bound_ms(q, k, True, window, 0)
-    print(f"timing flash_attention (1,{hq},{t_len},{dh}) window {window} "
-          f"{q.dtype}: wrapper {ms!r} ms  kernel (device) {dev_ms!r} ms  one "
-          f"call alone (events) {times['alone_ms']!r} ms  queued on the card "
-          f"{times['queued_ms']!r} ms  CUDA-core kernel {times['cuda_core_ms']!r}"
-          f" ms (queued {times['cuda_core_queued_ms']!r})  plain {plain!r} ms  "
-          f"library (sdpa, boolean mask) {library!r} ms (queued "
-          f"{times['library_queued_ms']!r})  bound {bound!r} ms ({bound_by})")
+    # SDPA on the same boolean mask, MQA as views, in both dtypes
+    flash = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = timed[("flash_attention", dtype)]
+        kx, vx = k.expand(q.shape), v.expand(q.shape)
+        flash[dtype] = flash_timings(
+            q, k, v, window,
+            lambda q=q, kx=kx, vx=vx: F.scaled_dot_product_attention(
+                q, kx, vx, attn_mask=mask))
     entries = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
         "launches": launches["flash_attention"],
-        "max_abs_err": errs["flash_attention"], **times, "plain_ms": plain,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
+        "max_abs_err": errs["flash_attention"], **flash[torch.bfloat16],
         "shape": {"B": 1, "Hq": hq, "Hkv": 1, "T": t_len, "S": t_len,
-                  "Dh": dh, "window": window, "dtype": str(q.dtype)},
+                  "Dh": dh, "window": window, "dtype": "torch.bfloat16"},
+        "float32": flash[torch.float32],
     }]
+    profiled = rglru_profile({
+        label: tuple(timed[("rglru_scan", torch.float32, label)][0].shape)
+        for label in ("prefill", "decode")})
     rglru = {"name": "rglru_scan", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
              "replaces": "src/repro/kernels/rglru_scan.py:25",
@@ -1446,13 +1556,11 @@ def phase_lm_kernels(device, launches, lengths=(17, 2049, 3000), hq=16, dh=256,
         # the kernels a call launches, as the profiler recorded them: both
         # passes at the prefill, the rescan alone at a decode step.  The
         # bf16 prefill, timed beside the kernel as it was served before,
-        # by CUDA events only: with that profiler session added, a later
-        # one recorded no launch in two of three runs on the H100
+        # by CUDA events only.  The profiler runs in a process of its own
+        # (``rglru_profile``)
         per_name, dev_ms = {}, None
         if key[1] == torch.float32:
-            dev_ms = kernel_device_ms(lambda: rglru_scan(x, a, h0),
-                                      RGLRU_KERNELS, calls=5,
-                                      recorded_per_call=per_name)
+            per_name, dev_ms = profiled[key[2]]
             summary, output = (per_name.get(n, 0.0) for n in RGLRU_KERNELS)
             check(output > 0 and (summary > 0) == (key[2] == "prefill"),
                   f"rglru_scan {key[2]}: the profiler recorded {per_name} "
@@ -1965,30 +2073,20 @@ def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
         flash["max_abs_err"] = max(flash["max_abs_err"], err)
         print(f"flash_attention (1,{hq},{prompt_len},{dh}) Hkv {hkv} causal "
               f"{dtype}: max |err| {err!r} (atol {atol}, rtol {rtol})")
-        if dtype == torch.bfloat16:
-            flash.update(flash_timings(q, k, v, None))
-            flash["plain_ms"] = time_ms(lambda: attention_ref(q, k, v),
-                                        runs=5, per_run=1, warmup=1)
-            def sdpa():
-                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                      enable_gqa=True)
-
-            flash["library_ms"] = time_ms(sdpa, runs=10, per_run=5)
-            flash["library_queued_ms"] = time_queued_ms(sdpa)
-            flash["bound_ms"], flash["bound_by"] = flash_bound_ms(
-                q, k, True, None, 0)
+        # SDPA with K and V repeated to the query heads beforehand, as
+        # views are in 6a, and ``is_causal``
+        kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        times = flash_timings(
+            q, k, v, None,
+            lambda q=q, kr=kr, vr=vr: F.scaled_dot_product_attention(
+                q, kr, vr, is_causal=True))
+        if dtype == torch.float32:
+            flash["float32"] = times
+        else:
+            flash.update(times)
             flash["shape"] = {"B": 1, "Hq": hq, "Hkv": hkv, "T": prompt_len,
                               "S": prompt_len, "Dh": dh, "window": None,
                               "dtype": str(dtype)}
-    print(f"timing flash_attention (1,{hq},{prompt_len},{dh}) Hkv {hkv} causal "
-          f"bfloat16: wrapper {flash['ms']!r} ms  kernel (device) "
-          f"{flash['kernel_device_ms']!r} ms  one call alone (events) "
-          f"{flash['alone_ms']!r} ms  queued on the card {flash['queued_ms']!r} "
-          f"ms  CUDA-core kernel {flash['cuda_core_ms']!r} ms (queued "
-          f"{flash['cuda_core_queued_ms']!r})  plain {flash['plain_ms']!r} ms  "
-          f"library (sdpa, is_causal, enable_gqa) {flash['library_ms']!r} ms "
-          f"(queued {flash['library_queued_ms']!r})  bound {flash['bound_ms']!r} "
-          f"ms ({flash['bound_by']})")
     return entry, flash
 
 
@@ -2107,6 +2205,40 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
               f"routing agreed at {int(agreed.sum())} of {agreed.numel()} "
               f"positions; there kernels vs plain max |err| {err!r} (atol "
               f"{atol}, rtol {rtol}; max |logit| {float(want.abs().max())!r})")
+
+    # the float32 prefill end to end: its wall and flash_attention's device
+    # ms within it, on the float32 route's kernel and, in its place through
+    # kernels.ops, on the CUDA-core kernel that served float32 before
+    def prefill():
+        out = M.prefill(cfg, params, {"tokens": tokens}, max_cache_len=max_len,
+                        use_kernels=True)
+        _sync(device)
+        return out
+
+    for label, attention, name in (("change", ops.flash_attention, FLASH_F32),
+                                   ("parent", cuda_core_attention,
+                                    FLASH_F32_BEFORE)):
+        real = ops.flash_attention
+        ops.flash_attention = attention
+        try:
+            prefill()
+            walls = []
+            for _ in range(3):
+                t = time.perf_counter()
+                prefill()
+                walls.append(time.perf_counter() - t)
+            per_launch = {}
+            dev = kernel_device_ms(prefill, name, calls=1,
+                                   recorded_per_call=per_launch)
+            recorded = sum(per_launch.values())
+        finally:
+            ops.flash_attention = real
+        within = None if dev is None else dev * recorded
+        print(f"{cfg.name} depth {depth} float32 {prompt_len}-token prefill, "
+              f"kernels on, flash_attention's float32 route on the {label}'s "
+              f"kernel ({name}): wall {statistics.median(walls)!r} s (runs "
+              f"{walls!r}); flash_attention device {within!r} ms in "
+              f"{recorded!r} launches ({dev!r} ms a launch)")
     del params
 
 
@@ -4280,6 +4412,69 @@ def tp_serving(device, mesh, arch, depth=None, prompt_len=TP_PROMPT,
             "widths_one_device": out["one device"]["widths"]}
 
 
+#: seconds a process of ``rglru_profile`` may take, the card reached and
+#: the built kernels loaded included
+RGLRU_PROFILE_TIMEOUT_S = 180
+
+
+def rglru_profile(shapes, tries: int = 3):
+    """For each label's float32 (B, T, D) in ``shapes``: each
+    ``rglru_scan`` kernel's launches a call and the device ms of a call,
+    as ``torch.profiler`` recorded them in a process of its own
+    (``rglru_profile_main``), the first sessions of that process: in this
+    one, after the profiler sessions of the phases before, every session
+    at the decode step once recorded no launch of either kernel (H100).
+    A process whose profiler recorded no launch at some shape is made
+    again, up to ``tries`` in all; the last one's result is returned."""
+    for attempt in range(1, tries + 1):
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--rglru-profile", json.dumps(shapes)],
+                capture_output=True, text=True,
+                timeout=RGLRU_PROFILE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"rglru_scan profile: the process took over "
+                 f"{RGLRU_PROFILE_TIMEOUT_S} s")
+        print(proc.stdout, end="")
+        if proc.returncode != 0:
+            print(proc.stderr[-8000:], file=sys.stderr)
+            fail(f"rglru_scan profile: the process exited {proc.returncode}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        profiled = {label: (per_name, dev_ms)
+                    for label, (per_name, dev_ms) in result.items()}
+        if all(any(per_name.values()) for per_name, _ in profiled.values()):
+            break
+        print(f"  rglru_scan profile: process {attempt} of {tries} recorded "
+              f"no launch at some shape: {profiled}")
+    return profiled
+
+
+def rglru_profile_main(shapes: str) -> None:
+    """The process of ``rglru_profile``: float32 inputs at each label's
+    (B, T, D), made from seed 2 as phase 6a makes its own (h0 zeros at a
+    prefill), each call profiled by ``kernel_device_ms``; prints one JSON
+    object, label → [launches a call by kernel, device ms a call]."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.rglru_scan import rglru_scan
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    result = {}
+    for label, (b, t_len, width) in json.loads(shapes).items():
+        x = torch.randn(b, t_len, width, generator=gen).to(device)
+        a = torch.sigmoid(torch.randn(b, t_len, width, generator=gen)).to(device)
+        h0 = (torch.zeros(b, width, device=device) if t_len > 1
+              else torch.randn(b, width, generator=gen).to(device))
+        per_name = {}
+        dev_ms = kernel_device_ms(lambda: rglru_scan(x, a, h0), RGLRU_KERNELS,
+                                  calls=5, recorded_per_call=per_name)
+        result[label] = [per_name, dev_ms]
+    print(json.dumps(result), flush=True)
+
+
 def tp_rank_main(rank: int, workdir: str) -> None:
     """One rank of phase 16, in a process of its own: 16a and 16b, the
     results written to ``workdir``/``rank<R>.json``."""
@@ -4798,7 +4993,7 @@ def main() -> None:
     flash["max_abs_err"] = max(flash["max_abs_err"], flash_granite["max_abs_err"],
                                example_err)
     flash["granite_prefill"] = flash_granite
-    flash["bf16_tensor_core_build"] = flash_build
+    flash["tensor_core_build"] = flash_build
     for e in entries:
         if e["name"] in tp_launches:
             e.setdefault("launches_by_path", {"serving": e["launches"]})
@@ -4815,5 +5010,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--tp-rank":
         tp_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--rglru-profile":
+        rglru_profile_main(sys.argv[2])
     else:
         main()

@@ -10,10 +10,13 @@ versions can be run in turns in one chip call (parent, change, change,
 parent), each in a process of its own.  Phases: ``5`` serving
 RecurrentGemma-9B, ``6a`` its kernels against their plain versions, ``7``
 serving Falcon-Mamba-7B, ``8a`` ``mamba_scan`` against its plain version,
+``10a`` ``moe_dispatch`` and ``flash_attention`` at Granite-MoE's shapes, ``10b``
+Granite-MoE's float32 depth-4 cut (kernels against plain versions, and the
+float32 prefill's wall on the float32 attention kernel and on the one before),
 ``14`` the planner in multi-device training, ``15`` the dry run at the
 production meshes, held to the card, ``16`` the tensor-parallel layout on
 two processes sharing the card, ``17`` the port's examples, after phase 1 (the card's name and
-power limit, and the kernels built).  Phases 6a and 8a run on
+power limit, and the kernels built).  Phases 6a, 8a and 10a run on
 stand-in launch counts (they print their kernels-line entries).  Needs a
 CUDA card.
 """
@@ -25,8 +28,8 @@ from pathlib import Path
 
 ap = argparse.ArgumentParser()
 ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
-ap.add_argument("phases", nargs="+", choices=["5", "6a", "7", "8a", "14", "15",
-                                              "16", "17"])
+ap.add_argument("phases", nargs="+", choices=["5", "6a", "7", "8a", "10a", "10b",
+                                              "14", "15", "16", "17"])
 args = ap.parse_args()
 tree = Path(args.tree).resolve()
 sys.path[:0] = [str(tree), str(tree / "src")]
@@ -55,6 +58,10 @@ for phase in args.phases:
         C.phase_serving(device, C.MAMBA_ARCH, fixed=C.MAMBA_PROMPTS, phase="7")
     elif phase == "8a":
         print(json.dumps(C.phase_mamba_kernel(device, stand_in), default=str))
+    elif phase == "10a":
+        print(json.dumps(C.phase_moe_kernel(device, stand_in), default=str))
+    elif phase == "10b":
+        C.phase_moe_model(device)
     elif phase == "14":
         print(json.dumps(C.phase_multidevice(device)[0], default=str))
     elif phase == "16":

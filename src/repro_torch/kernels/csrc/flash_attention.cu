@@ -14,11 +14,40 @@
 //
 // What bounds it on the H100: operations.  RecurrentGemma's prefill layer
 // (B=1, Hq=16, Hkv=1, T=S=3000, Dh=256, window 2048) does about 66 GFLOP on
-// 52 MB, Granite's (Hq=24, Hkv=8, Dh=64, causal) about 28 GFLOP on 27 MB:
-// far above the card's ridge of ~295 operations a byte in bf16, so the
-// products belong on the tensor cores.  Two kernels, chosen by the entry
-// point the wrapper calls:
+// 52 MB in bf16, Granite's (Hq=24, Hkv=8, Dh=64, causal) about 28 GFLOP on
+// 27 MB: far above the card's ridge of ~295 operations a byte in bf16, so
+// the products belong on the tensor cores.  Three kernels, chosen by the
+// entry point the wrapper calls:
 //
+// * flash_attention_kernel_tf32x3: float32 at any Dh <= 256, the
+//   reference's default serving dtype.  The tensor cores take float32 only
+//   as TF32 (a 10-bit mantissa), and one TF32 product would miss the float32
+//   bar (atol 2e-5) by more than ten times; so each operand x is split into
+//   hi = rna_tf32(x) and lo = rna_tf32(x - hi), and hi·hi' + hi·lo' +
+//   lo·hi' is summed in float32 accumulators (CUTLASS's
+//   OpMultiplyAddFastF32): three products at 495 TFLOP/s instead of one at
+//   67 on the CUDA cores.  The rounding is an integer add and mask (the
+//   bits cvt.rna.tf32.f32 gives, in far fewer instructions).  mma.sync
+//   m16n8k8 rather than wgmma: wgmma takes TF32 operands from shared
+//   memory K-major only, so V would sit there transposed, and the hi and
+//   lo parts of K and V would each need a tile of their own (64 KB a part
+//   at Dh 256); mma.sync fragments come from one float32 tile and are
+//   split in registers.  A block of four warps owns 64 query rows, 16 a
+//   warp, over 64-row kv tiles (32 at Dh 128 and 256); K and V reach
+//   shared memory by cp.async (16 bytes a copy where dh % 4 == 0,
+//   zero-filled past S and dh) through a two-stage ring, tile j+1 loading
+//   while tile j is computed.  Q and K fragments come by ldmatrix; P
+//   enters the second product straight from S's accumulator fragment with
+//   the kv rows of each 8 permuted, and V's fragments are read with the
+//   same permutation.  The online softmax stays in float32 registers (row
+//   max and sum by quad shuffles), the element mask runs only on tiles
+//   that straddle a causal, window or S edge, and a warp skips a tile
+//   whose keys none of its rows sees.  At Dh <= 64 each tile's P V starts
+//   from fresh accumulators and is added to O in float32, which keeps the
+//   tensor cores' truncating sums short.  The head is zero-padded to 16,
+//   32, 64, 128 or 256.  What bounds it is the split: the integer and
+//   float instructions that make and feed the fragments outnumber the mma
+//   several to one (see the tile constants below).
 // * flash_attention_kernel_wgmma: bfloat16 with Dh 64, 128 or 256 (both
 //   served widths).  A block of two warpgroups owns 128 query rows, 64 each.
 //   Q, K and V reach shared memory by TMA as 64-column (128-byte) boxes in
@@ -34,12 +63,13 @@
 //   float32 registers.  The element mask runs only on the tiles that
 //   straddle a causal, window or S edge.  Unlike the TPU kernel, P enters
 //   the second product in bf16.
-// * flash_attention_kernel: float32 at any Dh <= 256, and bfloat16 at the
-//   other widths.  One block per (batch, head, 64 rows) over 32-row kv
-//   tiles, both products on the CUDA cores in float32 (bf16 widened on
-//   load), the head zero-padded to 16, 32, 64, 128 or 256.  float32 stays
-//   here on purpose: the tensor cores take float32 only as TF32 (a 10-bit
-//   mantissa), which would break the full-width float32 model cuts' bars.
+// * flash_attention_kernel: bfloat16 at the other widths.  One block per
+//   (batch, head, 64 rows) over 32-row kv tiles, both products on the CUDA
+//   cores in float32 (bf16 widened on load), the head zero-padded to 16,
+//   32, 64, 128 or 256.  Its float32 instantiation served float32 before
+//   the split-TF32 kernel; it stays callable through flash_attention_f32
+//   only as the yardstick chip_smoke.py times, and no path of the port
+//   reaches it.
 //
 // Layout: q (B, Hq, T, Dh), k and v (B, Hkv, S, Dh), out (B, Hq, T, Dh),
 // all contiguous; query head h reads kv head h / (Hq / Hkv).  Query t sits
@@ -61,11 +91,13 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// CUDA cores: float32, and bfloat16 at widths other than 64, 128 and 256
+// CUDA cores: bfloat16 at widths other than 64, 128 and 256 (and float32,
+// the yardstick)
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;       // query rows per block
@@ -784,6 +816,441 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor cores: float32 at any Dh <= 256, three TF32 products (mma.sync)
+// ---------------------------------------------------------------------------
+
+// Tile constants, for heads of 64 or fewer columns ("small") and wider;
+// scripts/tune_flash.py times variants of them (PERF.md has the times).
+// Warps a block (16 query rows each), kv rows a tile, the least blocks an
+// SM that the registers must allow; the ring's stages; and the Dh columns
+// of P V summed from a fresh accumulator each tile (0: P V accumulates
+// into O itself; else a multiple of 8).  The tensor cores' float32 sums
+// truncate, so the chain of mma into O across every tile accumulates that
+// error: fresh accumulators, added to O in float32 on the CUDA cores, cut
+// it about fourfold at Granite's prefill for next to no time, while at
+// Dh 256 their registers cost more than they save.
+constexpr int kTcWarpsSmall = 4;
+constexpr int kTcWarpsWide = 4;
+constexpr int kTcBKSmall = 64;
+constexpr int kTcBKWide = 32;
+constexpr int kTcBlocksSmall = 2;
+constexpr int kTcBlocksWide = 1;
+constexpr int kTcStages = 2;
+constexpr int kTcOChunkSmall = 64;
+constexpr int kTcOChunkWide = 0;
+
+template <int DH>
+struct TcTile {
+  static constexpr int warps = DH <= 64 ? kTcWarpsSmall : kTcWarpsWide;
+  static constexpr int threads = 32 * warps;
+  static constexpr int BQ = 16 * warps;  // query rows a block
+  static constexpr int BK = DH <= 64 ? kTcBKSmall : kTcBKWide;
+  // row pitch in floats: DH + 4 puts the 8 rows of an ldmatrix (and the
+  // 4 kv rows of V's fragment loads) on distinct banks
+  static constexpr int ld = DH + 4;
+  static constexpr int q_floats = BQ * ld;
+  static constexpr int kv_floats = BK * ld;  // one K or one V tile
+  static constexpr size_t smem = 4 * (q_floats + kTcStages * 2 * kv_floats);
+  static constexpr int min_blocks = DH <= 64 ? kTcBlocksSmall : kTcBlocksWide;
+  // n-tiles (8 Dh columns each) a fresh P V chunk
+  static constexpr int o_cols = DH <= 64 ? kTcOChunkSmall : kTcOChunkWide;
+  static constexpr bool o_fresh = o_cols >= 8;
+  static constexpr int o_chunk =
+      o_fresh && o_cols / 8 < DH / 8 ? o_cols / 8 : DH / 8;
+};
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+// as cvt.rna.tf32.f32 rounds it: bit for bit by an integer add and a mask,
+// which costs fewer instructions than ptxas makes of cvt.rna
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo with both parts TF32: hi rounds x to TF32, lo the remainder;
+// hi·hi' + hi·lo' + lo·hi' then misses x·x' by the lo·lo' term alone (about
+// 2^-22 relative), a float32 product's error but for a few ulps
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  const float rest = x - __uint_as_float(hi);
+  lo = tf32_rna(rest);
+}
+
+// D(16 x 8, f32) += A(16 x 8, tf32, row) B(8 x 8, tf32, col).  Fragments,
+// lane = 4 g + t: A a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); B b0 (k t, n g), b1 (k t + 4, n g); D d0, d1 (g, 2t and 2t + 1),
+// d2, d3 (g + 8, 2t and 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the three products, the two small ones first
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], uint32_t bh0,
+                                          uint32_t bh1, uint32_t bl0,
+                                          uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// four 8 x 4 float32 blocks (8 x 8 b16 matrices to ldmatrix) from shared
+// memory; lane 8 i + r gives row r of block i, and lane 4 g + t receives
+// word t of row g of each block: an A fragment, or two B fragments
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// cp.async of 16 or 4 bytes; a source of 0 bytes fills the destination
+// with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// all but the newest N groups have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Warp w owns query rows 16 w .. 16 w + 15 of the block's; S's and O's
+// accumulator fragments give lane 4 g + t rows g and g + 8, columns 2 t and
+// 2 t + 1 of each 8 columns.  P enters the second product straight from
+// S's fragment with the kv rows of each 8 permuted (A column t is kv row
+// 2 t, column t + 4 is kv row 2 t + 1), and V's fragments are read with
+// the same permutation, so nothing is shuffled between lanes.
+template <int DH>
+__global__ void __launch_bounds__(TcTile<DH>::threads, TcTile<DH>::min_blocks)
+flash_attention_kernel_tf32x3(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              float* __restrict__ out, int hq, int hkv,
+                              int t_len, int s_len, int dh, int vec, int causal,
+                              int window, int q_offset, float scale_log2) {
+  using W = TcTile<DH>;
+  constexpr int BQ = W::BQ;
+  constexpr int BK = W::BK;
+  constexpr int LD = W::ld;
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;
+  float* kv_s = q_s + W::q_floats;  // stage st: K, then V
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  // the longest causal rows first, so that the short ones fill the tail
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int64_t kv_head = static_cast<int64_t>(b) * hkv + h / (hq / hkv);
+  const float* qg = q + (static_cast<int64_t>(b) * hq + h) * t_len * dh;
+  const float* kg = k + kv_head * s_len * dh;
+  const float* vg = v + kv_head * s_len * dh;
+
+  // kv rows that any query of the block can see, and this warp's
+  const int q_lo = q0 + q_offset;
+  const int q_hi = min(q0 + BQ, t_len) - 1 + q_offset;
+  int k_first = 0;
+  if (window > 0 && q_lo - window + 1 > 0) k_first = q_lo - window + 1;
+  int k_last = s_len - 1;
+  if (causal && q_hi < k_last) k_last = q_hi;
+  const int tile_lo = k_first / BK;
+  const int n_tiles = k_last < k_first ? 0 : k_last / BK - tile_lo + 1;
+  const int wrow = warp * 16;
+  const int wq_lo = q0 + wrow + q_offset;
+  const int wq_hi = wq_lo + 15;
+  int wk_first = 0;
+  if (window > 0 && wq_lo - window + 1 > 0) wk_first = wq_lo - window + 1;
+  int wk_last = s_len - 1;
+  if (causal && wq_hi < wk_last) wk_last = wq_hi;
+  if (q0 + wrow >= t_len) wk_last = -1;  // no row of this warp is real
+
+  // rows r0 .. r0 + ROWS - 1 of a (n_rows, dh) matrix into a (ROWS, ld)
+  // tile: rows past n_rows and columns past dh are zeros, never read
+  auto load_rows = [&](float* dst, const float* src, int r0, int n_rows,
+                       auto rows_c) {
+    constexpr int ROWS = decltype(rows_c)::value;
+    if (vec) {  // dh % 4 == 0 and 16-byte aligned rows
+      constexpr int chunks = DH / 4;
+      for (int i = tid; i < ROWS * chunks; i += W::threads) {
+        const int r = i / chunks, c = 4 * (i % chunks);
+        const bool in = r0 + r < n_rows && c < dh;
+        cp_async16(smem_addr(dst + r * LD + c),
+                   in ? src + static_cast<int64_t>(r0 + r) * dh + c : src, in);
+      }
+    } else {
+      for (int i = tid; i < ROWS * DH; i += W::threads) {
+        const int r = i / DH, c = i % DH;
+        const bool in = r0 + r < n_rows && c < dh;
+        cp_async4(smem_addr(dst + r * LD + c),
+                  in ? src + static_cast<int64_t>(r0 + r) * dh + c : src, in);
+      }
+    }
+  };
+  using QRows = std::integral_constant<int, BQ>;
+  using KvRows = std::integral_constant<int, BK>;
+  auto load_kv = [&](int j) {
+    float* dst = kv_s + (j % kTcStages) * 2 * W::kv_floats;
+    const int k0 = (tile_lo + j) * BK;
+    load_rows(dst, kg, k0, s_len, KvRows{});
+    load_rows(dst + W::kv_floats, vg, k0, s_len, KvRows{});
+  };
+
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) o[n][x] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's columns only; summed at the end
+
+  if (n_tiles > 0) {
+    // tiles 0 .. kTcStages - 2 in flight, one group each, Q with the first
+    load_rows(q_s, qg, q0, t_len, QRows{});
+#pragma unroll
+    for (int j = 0; j < kTcStages - 1; ++j) {
+      if (j < n_tiles) load_kv(j);
+      cp_async_commit();
+    }
+    // ldmatrix addresses: Q's A fragment (rows + 8 for blocks 1 and 3,
+    // columns + 4 for blocks 2 and 3), K's B fragments of two 8-row groups
+    // (columns + 4 for blocks 1 and 3, rows + 8 for blocks 2 and 3)
+    const uint32_t q_frag = smem_addr(
+        q_s + (wrow + lane % 8 + 8 * ((lane / 8) % 2)) * LD + 4 * (lane / 16));
+    const int k_frag = (lane % 8 + 8 * (lane / 16)) * LD + 4 * ((lane / 8) % 2);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      // the stage that tile j + kTcStages - 1 overwrites was released by
+      // the barrier at the end of iteration j - 1
+      if (j + kTcStages - 1 < n_tiles) load_kv(j + kTcStages - 1);
+      cp_async_commit();
+      cp_async_wait<kTcStages - 1>();
+      __syncthreads();
+      const float* k_s = kv_s + (j % kTcStages) * 2 * W::kv_floats;
+      const float* v_s = k_s + W::kv_floats;
+      const int k0 = (tile_lo + j) * BK;
+
+      if (k0 <= wk_last && k0 + BK - 1 >= wk_first) {
+        // S = Q K^T, 8 columns of Dh a step
+        float s[BK / 8][4];
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) s[n][x] = 0.f;
+        const uint32_t k_base = smem_addr(k_s + k_frag);
+#pragma unroll
+        for (int kk = 0; kk < DH / 8; ++kk) {
+          uint32_t qa[4], qh[4], ql[4];
+          ldsm_x4(qa, q_frag + 32 * kk);
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            split_tf32(__uint_as_float(qa[x]), qh[x], ql[x]);
+#pragma unroll
+          for (int n = 0; n < BK / 8; n += 2) {
+            uint32_t kb[4], kh[4], kl[4];
+            ldsm_x4(kb, k_base + 4 * (8 * n * LD + 8 * kk));
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              split_tf32(__uint_as_float(kb[x]), kh[x], kl[x]);
+            mma_split(s[n], qh, ql, kh[0], kh[1], kl[0], kl[1]);
+            mma_split(s[n + 1], qh, ql, kh[2], kh[3], kl[2], kl[3]);
+          }
+        }
+
+        const bool edge = k0 + BK > s_len || (causal && k0 + BK - 1 > wq_lo) ||
+                          (window > 0 && k0 <= wq_hi - window);
+        if (edge) {
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int qpos = wq_lo + g + 8 * r;
+                const int kpos = k0 + 8 * n + 2 * t4 + c;
+                bool live = kpos < s_len;
+                if (causal) live = live && kpos <= qpos;
+                if (window > 0) live = live && kpos > qpos - window;
+                if (!live) s[n][2 * r + c] = -INFINITY;
+              }
+        }
+
+        // online softmax in the log2 domain; the four lanes of a quad share
+        // a row
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n)
+            mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[r], mx * scale_log2);
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;
+          alpha[r] = fast_exp2(m[r] - m_use);
+          m[r] = m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              float& e = s[n][2 * r + c];
+              e = fast_exp2(fmaf(e, scale_log2, -m_use));
+              sum += e;
+            }
+          l[r] = l[r] * alpha[r] + sum;
+        }
+
+        // O = alpha O + P V, 8 kv rows a step: P's A fragment is S's
+        // fragment with its columns permuted, V's B fragment the same kv
+        // rows 2 t, 2 t + 1.  Either P V accumulates into the rescaled O,
+        // or each W::o_chunk n-tiles of it into fresh accumulators, added
+        // to the rescaled O in float32.
+        const float* v_lane = v_s + 2 * t4 * LD + g;
+        if constexpr (!W::o_fresh) {
+#pragma unroll
+          for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) o[n][x] *= alpha[x / 2];
+        }
+#pragma unroll
+        for (int n0 = 0; n0 < DH / 8; n0 += W::o_chunk) {
+          float pv[W::o_chunk][4];
+#pragma unroll
+          for (int n = 0; n < W::o_chunk; ++n)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) pv[n][x] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < BK / 8; ++kk) {
+            const float pa[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+            uint32_t ph[4], pl[4];
+#pragma unroll
+            for (int x = 0; x < 4; ++x) split_tf32(pa[x], ph[x], pl[x]);
+            const float* v_row = v_lane + 8 * kk * LD + 8 * n0;
+#pragma unroll
+            for (int n = 0; n < W::o_chunk; ++n) {
+              uint32_t vh0, vl0, vh1, vl1;
+              split_tf32(v_row[8 * n], vh0, vl0);
+              split_tf32(v_row[LD + 8 * n], vh1, vl1);
+              if constexpr (!W::o_fresh)
+                mma_split(o[n0 + n], ph, pl, vh0, vh1, vl0, vl1);
+              else
+                mma_split(pv[n], ph, pl, vh0, vh1, vl0, vl1);
+            }
+          }
+          if constexpr (W::o_fresh) {
+#pragma unroll
+            for (int n = 0; n < W::o_chunk; ++n)
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                o[n0 + n][x] = fmaf(o[n0 + n][x], alpha[x / 2], pv[n][x]);
+          }
+        }
+      }
+      __syncthreads();  // every warp is done with this stage
+    }
+  }
+
+  float* og = out + (static_cast<int64_t>(b) * hq + h) * t_len * dh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = sum == 0.f ? 0.f : 1.f / sum;
+    const int row = q0 + wrow + g + 8 * r;
+    if (row >= t_len) continue;
+    float* orow = og + static_cast<int64_t>(row) * dh;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      const int d = 8 * n + 2 * t4;
+      if (d < dh) orow[d] = o[n][2 * r] * inv;
+      if (d + 1 < dh) orow[d + 1] = o[n][2 * r + 1] * inv;
+    }
+  }
+}
+
+template <int DH>
+int launch_tc(const float* q, const float* k, const float* v, float* out,
+              int64_t b, int64_t hq, int64_t hkv, int64_t t_len, int64_t s_len,
+              int dh, int vec, int causal, int window, int q_offset,
+              float scale, cudaStream_t stream) {
+  using W = TcTile<DH>;
+  static bool smem_allowed = false;  // as in launch_dh
+  if (!smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel_tf32x3<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(W::smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = true;
+  }
+  const dim3 grid(static_cast<unsigned>((t_len + W::BQ - 1) / W::BQ),
+                  static_cast<unsigned>(hq), static_cast<unsigned>(b));
+  flash_attention_kernel_tf32x3<DH><<<grid, W::threads, W::smem, stream>>>(
+      q, k, v, out, static_cast<int>(hq), static_cast<int>(hkv),
+      static_cast<int>(t_len), static_cast<int>(s_len), dh, vec, causal,
+      window, q_offset, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32_tc(const void* q, const void* k, const void* v, void* out,
+                  int64_t b, int64_t hq, int64_t hkv, int64_t t_len,
+                  int64_t s_len, int64_t dh, int causal, int64_t window,
+                  int64_t q_offset, float scale, void* stream) {
+  if (b <= 0 || hq <= 0 || t_len <= 0 || dh <= 0)
+    return static_cast<int>(cudaSuccess);
+  if (dh > 256 || hkv <= 0 || hq % hkv != 0 || s_len < 0 ||
+      s_len > INT_MAX / 2 || t_len > INT_MAX / 2 || q_offset > INT_MAX / 2 ||
+      q_offset < -(INT_MAX / 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s_len == 0)  // no key: every row gives 0
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, static_cast<size_t>(b * hq * t_len * dh) * 4, st));
+  const int win =
+      window <= 0 ? 0 : static_cast<int>(window < INT_MAX / 2 ? window : INT_MAX / 2);
+  // 16-byte copies where every row starts on 16 bytes, 4-byte ones else
+  const int vec = dh % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(out);
+#define FA_TC(DHV)                                                         \
+  return launch_tc<DHV>(qp, kp, vp, op, b, hq, hkv, t_len, s_len,          \
+                        static_cast<int>(dh), vec, causal, win,            \
+                        static_cast<int>(q_offset), scale, st)
+  if (dh <= 16) FA_TC(16);
+  if (dh <= 32) FA_TC(32);
+  if (dh <= 64) FA_TC(64);
+  if (dh <= 128) FA_TC(128);
+  FA_TC(256);
+#undef FA_TC
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
                                  const cuuint32_t*, const cuuint32_t*,
@@ -892,6 +1359,16 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    int64_t q_offset, float scale,
                                    void* stream) {
   return launch<float>(q, k, v, out, b, hq, hkv, t_len, s_len, dh, causal,
+                       window, q_offset, scale, stream);
+}
+
+extern "C" int flash_attention_f32_tc(const void* q, const void* k,
+                                      const void* v, void* out, int64_t b,
+                                      int64_t hq, int64_t hkv, int64_t t_len,
+                                      int64_t s_len, int64_t dh, int causal,
+                                      int64_t window, int64_t q_offset,
+                                      float scale, void* stream) {
+  return launch_f32_tc(q, k, v, out, b, hq, hkv, t_len, s_len, dh, causal,
                        window, q_offset, scale, stream);
 }
 

@@ -5,18 +5,23 @@ Replaces the TPU kernel :func:`repro.kernels.flash_attention._attn_kernel`
 (blockwise online softmax with the running max, normaliser and accumulator
 in VMEM across a sequential kv grid axis) with the hand-written CUDA C++
 kernels of ``csrc/flash_attention.cu`` for ``sm_90a``.  The function is
-bound by operations on the H100, and both kernels skip every kv tile that
+bound by operations on the H100, and every kernel skips every kv tile that
 no query of the block can see, as the TPU kernel does.  Which kernel runs
 is a rule of (dtype, Dh), :func:`_entry`:
 
+* float32 at any Dh <= 256 (the reference's default serving dtype): both
+  products on the tensor cores with ``mma.sync`` in TF32, each operand
+  split into a TF32 high part and a TF32 remainder and three products
+  summed in float32 (``hi·hi' + hi·lo' + lo·hi'``), which keeps float32
+  accuracy; K and V through a two-stage ``cp.async`` ring, the online
+  softmax in float32 registers.
 * bfloat16 with Dh 64, 128 or 256 (:data:`WGMMA_HEAD_DIMS`, the served
   widths among them): both products on the tensor cores with ``wgmma``,
   Q, K and V fed by TMA, the online softmax in float32 registers, P
   rounded to bf16 for the second product.  q, k and v must be 16-byte
   aligned (TMA's rule).
-* bfloat16 at any other Dh <= 256, and float32: the CUDA-core kernel,
-  both products in float32.  float32 stays there because the tensor cores
-  take float32 only as TF32.
+* bfloat16 at any other Dh <= 256: the CUDA-core kernel, both products
+  in float32.
 
 See the note in the source.  For a tensor on the CPU the wrapper computes
 the plain version :func:`repro_torch.kernels.ref.attention_ref`; for a
@@ -51,7 +56,7 @@ def _entry(dtype: torch.dtype, dh: int) -> str:
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {dh} > {MAX_HEAD_DIM}")
     if dtype == torch.float32:
-        return "flash_attention_f32"
+        return "flash_attention_f32_tc"
     if dh in WGMMA_HEAD_DIMS:
         return "flash_attention_bf16_wgmma"
     return "flash_attention_bf16"

@@ -264,6 +264,52 @@ def test_flash_attention_bf16_width_rule(card, Dh, entry):
     torch.testing.assert_close(got.float(), want.float(), **KTOL["bfloat16"])
 
 
+@pytest.mark.parametrize("Dh", [16, 36, 48, 96, 200])
+def test_flash_attention_float32_width_rule(card, Dh):
+    """float32 at widths between the kernel's instantiations (16, 32, 64,
+    128, 256), the head zero-padded in shared memory: the split-TF32
+    tensor-core kernel matches the plain version."""
+    assert flash_entry(torch.float32, Dh) == "flash_attention_f32_tc"
+    q = _normal((1, 4, 150, Dh), 0, card, "float32")
+    k = _normal((1, 2, 150, Dh), 1, card, "float32")
+    v = _normal((1, 2, 150, Dh), 2, card, "float32")
+    got = flash_attention(q, k, v, causal=True, window=100)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=True, window=100)
+    torch.testing.assert_close(got, want, **KTOL["float32"])
+
+
+@pytest.mark.parametrize("Dh,offset", [(30, 0), (255, 0), (64, 1), (17, 3)])
+def test_flash_attention_float32_unaligned_rows(card, Dh, offset):
+    """Rows that do not start on 16 bytes (Dh not a multiple of 4, or q, k
+    and v one to three floats into their storage) take the float32
+    kernel's 4-byte copies: it matches the plain version."""
+    def unaligned(shape, seed):
+        flat = _normal((offset + int(np.prod(shape)),), seed, card, "float32")
+        return flat[offset:].view(shape)
+    q = unaligned((1, 4, 90, Dh), 0)
+    k = unaligned((1, 2, 90, Dh), 1)
+    v = unaligned((1, 2, 90, Dh), 2)
+    got = flash_attention(q, k, v, causal=True, window=50, q_offset=5)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=True, window=50, q_offset=5)
+    torch.testing.assert_close(got, want, **KTOL["float32"])
+
+
+@pytest.mark.parametrize("Dh,window", [(64, None), (256, 16)])
+def test_flash_attention_float32_one_kv_head_short_prompt(card, Dh, window):
+    """All 8 query heads share one kv head, T = 40 is under one 64-row
+    block and S = 47 under one kv tile (an offset of 7): the float32
+    kernel matches the plain version."""
+    q = _normal((1, 8, 40, Dh), 0, card, "float32")
+    k = _normal((1, 1, 47, Dh), 1, card, "float32")
+    v = _normal((1, 1, 47, Dh), 2, card, "float32")
+    got = flash_attention(q, k, v, causal=True, window=window, q_offset=7)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=True, window=window, q_offset=7)
+    torch.testing.assert_close(got, want, **KTOL["float32"])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Hq,Hkv,Dh,causal", [(4, 2, 64, True),
                                               (4, 1, 256, False)])

@@ -357,8 +357,10 @@ def test_flash_attention_bf16_entry_rule(dh, entry):
 
 
 @pytest.mark.parametrize("dh", [16, 64, 80, 128, 256])
-def test_flash_attention_float32_stays_on_the_cuda_cores(dh):
-    assert _flash_entry(torch.float32, dh) == "flash_attention_f32"
+def test_flash_attention_float32_takes_the_split_tf32_kernel(dh):
+    """float32 at every width takes the tensor-core kernel that sums three
+    TF32 products."""
+    assert _flash_entry(torch.float32, dh) == "flash_attention_f32_tc"
 
 
 def test_flash_attention_entry_rule_raises():
@@ -375,10 +377,84 @@ def test_flash_attention_entries_exist_in_the_source():
     src = (_build.CSRC / "flash_attention.cu").read_text()
     named = {_flash_entry(dtype, dh) for dtype in (torch.float32, torch.bfloat16)
              for dh in (16, 64, 80, 128, 256)}
-    assert named == {"flash_attention_f32", "flash_attention_bf16",
+    assert named == {"flash_attention_f32_tc", "flash_attention_bf16",
                      "flash_attention_bf16_wgmma"}
-    for entry in named:
+    # the CUDA-core float32 entry stays, as the "before" yardstick that
+    # chip_smoke.py times; no rule names it
+    for entry in named | {"flash_attention_f32"}:
         assert f'extern "C" int {entry}(' in src
+
+
+def _tf32_rna(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, on its float32 bits: what ``cvt.rna.tf32.f32`` gives."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """a @ b as the tensor cores take float32: one TF32 product
+    (``products=1``), or each operand split into a TF32 high part and a
+    TF32 remainder and ``hi·hi' + hi·lo' + lo·hi'`` (``products=3``).  A
+    product of two TF32 values is exact in float32, so float32 matmuls of
+    the parts model the hardware's exact products and float32 sums."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    out = ah @ bh
+    if products == 3:
+        al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+        out = al @ bh + ah @ bl + out
+    return out
+
+
+def _tf32_attention(q, k, v, causal, window, q_offset, products):
+    """The float32 kernel's arithmetic: S = Q Kᵀ and O = P V (P unnormalized,
+    at most 1) through ``_tf32_matmul``, a float32 softmax, O divided by
+    the row sum; a row that sees no key gives 0."""
+    rep = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    T, S, Dh = q.shape[2], k.shape[2], q.shape[3]
+    qpos = torch.arange(T)[:, None] + q_offset
+    kpos = torch.arange(S)[None, :]
+    live = torch.ones(T, S, dtype=torch.bool)
+    if causal:
+        live &= kpos <= qpos
+    if window is not None:
+        live &= kpos > qpos - window
+    s = _tf32_matmul(q, k.transpose(-1, -2), products) * Dh ** -0.5
+    s = s.masked_fill(~live, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    l = p.sum(-1, keepdim=True)
+    o = _tf32_matmul(p, v, products)
+    return torch.where(l > 0, o / torch.where(l > 0, l, torch.ones_like(l)),
+                       torch.zeros_like(o))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,Dh,causal,window,qoff", [
+    (1, 4, 2, 64, 64, 64, True, None, 0),     # Granite-like: GQA, causal
+    (1, 4, 1, 48, 48, 256, True, 16, 0),      # RecurrentGemma-like: MQA, window
+    (1, 4, 1, 20, 52, 16, True, 24, 32),      # reduced Qwen3's width, an offset
+])
+def test_split_tf32_products_keep_float32_accuracy(B, Hq, Hkv, T, S, Dh, causal,
+                                                   window, qoff):
+    """The split's rounding, emulated on the CPU: three TF32 products stay
+    within the float32 kernel tolerance (the reference's atol 2e-5, rtol
+    1e-2) of the plain version, and at least 10x closer to it than one TF32
+    product (P, in [0, 1], is split too).  The emulation sums in exact
+    float32 matmuls, so it bounds only the error of the split: the tensor
+    cores' truncating accumulation along the kernel's chain of mma is not
+    in it, and the card's tests (``tests/test_torch_cuda.py``) hold the
+    kernel itself to the bar."""
+    q = torch.from_numpy(_normal((B, Hq, T, Dh), 0))
+    k = torch.from_numpy(_normal((B, Hkv, S, Dh), 1))
+    v = torch.from_numpy(_normal((B, Hkv, S, Dh), 2))
+    want = attention_ref(q, k, v, causal=causal, window=window, q_offset=qoff)
+    three = _tf32_attention(q, k, v, causal, window, qoff, products=3)
+    one = _tf32_attention(q, k, v, causal, window, qoff, products=1)
+    torch.testing.assert_close(three, want, atol=2e-5, rtol=1e-2)
+    err3 = float((three - want).abs().max())
+    err1 = float((one - want).abs().max())
+    assert 10 * err3 <= err1, (err3, err1)
 
 
 #: the reference's bar for the Mamba kernel (tests/test_kernels.py:81-87):
