@@ -102,7 +102,9 @@ Phases:
     model with the ``moe_dispatch`` kernel equals the one with its plain
     version bit for bit; with all kernels against all plain versions, the
     routing choices that differ are counted (at most 1%) and the logits
-    are held to the model tolerance where routing agreed in every layer.
+    are held to the model tolerance at every position: as run where no
+    choice differs, else with the plain run's choices pinned (a flipped
+    choice moves other tokens' capacity slots).
 
 11. Training, after Granite's weights are freed: Qwen3-1.7B at full width
     and depth (28 layers, d_model 2048, vocab 151,936, 1.72 B parameters)
@@ -125,7 +127,7 @@ Phases:
     Zipf(1.4) corpus with 35% of its input at sources g and g+4 and 5% at
     the other six, calibrated, planned through ``GeoSchedule`` by
     ``independent``, ``sequential`` and ``joint`` (and ``joint`` under
-    ``min_max_slowdown``) at 24 x 500, simulated and executed: word counts
+    ``min_max_slowdown``) at 24 x 250, simulated and executed: word counts
     exact, every non-empty reducer of every job launching ``segment_sum``
     (counted from 0), every plan valid, joint's modeled aggregate no worse
     than independent's, the fair objective's worst slowdown no worse than
@@ -150,7 +152,7 @@ Phases:
     chain through ``GeoPipeline`` on phase 2's corpus (stage 0 counts the
     words, stages 1 and 2 count the low 20 bits of the counts before),
     its downstream alphas and out_scales measured by one uniform-plan
-    probe run; planned ``stagewise`` and ``end_to_end`` at 24 x 500,
+    probe run; planned ``stagewise`` and ``end_to_end`` at 24 x 250,
     simulated and executed: every stage's outputs equal numpy's chain,
     every non-empty reducer of every stage launches ``segment_sum``
     (counted from 0), every plan valid, ``end_to_end`` no worse modeled,
@@ -237,11 +239,41 @@ Phases:
     finite, its last two losses below the first run's first, no kernel
     launched.
 
+18. The six model families no earlier phase runs, each at full width
+    (``CARD_ARCHS``), the card's memory freed between them: 18a OLMo-1B
+    (non-parametric LayerNorm, tied embeddings, Dh 128), 18b StableLM-1.6B
+    (LayerNorm with bias, Dh 64), 18c Mistral-NeMo-12B (GQA 32:8, Dh 128),
+    18d Llama4-Scout-17B-A16E at depth 8 (two iRoPE groups: windowed RoPE
+    layers at 8192 and a global NoPE layer; a top-1 MoE over 16 experts),
+    18e Phi-3-vision-4.2B (Dh 96, the bf16 CUDA-core kernel) and 18f
+    MusicGen-large (GELU MLP; both take stub-frontend ``embeds``).  Each
+    is served in bfloat16 with the kernels: the token-in archs through
+    ``ServeEngine`` as phase 9 (4 slots, prompts of 1, 17, 2048 and 3000
+    tokens; Llama4-Scout 1, 17, 3000 and 9000 at ``max_len`` 9216, past
+    its window; 32 new tokens each), the two others by ``model.prefill``
+    of 3000 seeded embeds and 32 ``model.decode_step`` calls.  Tokens in
+    the vocabulary, finite logits, ``flash_attention`` (and Llama4's
+    ``moe_dispatch``) launches exact per admission and per step, every
+    launch resolving the expected C entry (``flash_attention_bf16`` at Dh
+    96, ``flash_attention_bf16_wgmma`` otherwise), init and serving peaks
+    under 80 GB.  Then ``flash_attention`` at each arch's prefill shape in
+    both dtypes (Llama4-Scout with and without its window) and
+    ``moe_dispatch`` at Llama4-Scout's, against their plain versions and
+    timed as in phases 6a and 10a; a float32 cut (depth 2; NeMo 1;
+    Llama4-Scout 4 with a 9000-token prefill, held as phase 10b) against
+    the plain versions; OLMo and MusicGen trained as phase 11a (8 AdamW
+    steps of 4 x 2048; MusicGen at a peak lr of 3e-5, where 3e-4
+    diverges), and OLMo, StableLM, Phi-3 and MusicGen's float32 training
+    cut as phase 11b.  Each arch's reckoned bytes at full width
+    are printed and must be under 80 GB.
+
 After the phases, one ``{"kernels": [...]}`` line lists every kernel; the
 scans' entries time the float32 prefill inputs the bf16 models now give
 them (the bf16 prefill beside), and ``moe_dispatch``'s and
 ``flash_attention``'s launches add those of 14b's expert-parallel
-prefills (``flash_attention``'s also 17e's).
+prefills (``flash_attention``'s also 17e's) and of phase 18's serving,
+with phase 18's shapes' errors and times (``card_archs``,
+``llama4-scout-17b-a16e_prefill``).
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -257,6 +289,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+#: when the script started
+_T0 = time.perf_counter()
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (non-tensor
 #: core) operations/s and dense bfloat16 tensor-core operations/s, at the
@@ -316,14 +350,23 @@ MAMBA_TOL = {"torch.float32": (5 * 2e-5, 3e-2), "torch.bfloat16": (5 * 2e-2, 3e-
 #: its own: float32 sums of a few hundred terms, ~1e-6 of the leaf)
 TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
+#: its peak learning rate, after 2 warm-up steps
+TRAIN_LR = "3e-4"
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 #: multi-job schedules (phase 12): four tenants, every built-in schedule
-#: policy (joint under both objectives) at the default 24 x 500; online
-#: re-planning at run_online's default 8 restarts x 200 steps
+#: policy (joint under both objectives); online re-planning at run_online's
+#: default 8 restarts, at the steps below
 SCHED_JOBS = 4
 SCHED_POLICIES = (("independent", "makespan"), ("sequential", "makespan"),
                   ("joint", "makespan"), ("joint", "min_max_slowdown"))
-ONLINE_RESTARTS, ONLINE_STEPS = 8, 200
+ONLINE_RESTARTS, ONLINE_STEPS = 8, 50
+#: the schedules' and pipelines' plans (phases 12 and 13): the paper's 24
+#: restarts at half its 500 steps, and run_online (above) at a quarter of
+#: its default 200 steps.  The solves are host-bound, their walls in
+#: proportion to the steps; their checks hold by construction at any
+#: count.  The main path (phase 2) and the batched solver (phase 4) keep
+#: 24 x 500.
+SCHED_RESTARTS, SCHED_STEPS = 24, 250
 #: pipelines (phase 13): a 3-stage word-count chain, each stage after the
 #: first counting the counts of the one before (its map keeps the low 20
 #: bits of a value, as word count's does); the example's pipeline_pair
@@ -1085,6 +1128,34 @@ def expected_launches(cfg):
             "moe_dispatch": (n_moe, n_moe)}
 
 
+def bf16_weights(device, cfg):
+    """``cfg``'s weights in bfloat16 from a seeded generator on ``device``,
+    with their size and init's peak device memory printed and the peak
+    held under one card's; the peak counter is reset after."""
+    import torch
+    from repro_torch.models import model as M
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = M.init(cfg, gen, device=device, dtype=torch.bfloat16)
+    _sync(device)
+    n_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    print(f"init: {n_bytes / 1e9:.3f} GB of weights in {time.perf_counter() - t:.3f} s")
+    init_peak = 0
+    if device.type == "cuda":
+        # init draws each leaf in float32 before the cast: its own peak
+        init_peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    print(f"init peak device memory {init_peak / 1e9!r} GB")
+    check(init_peak < CARD_BYTES, f"init peak device memory "
+          f"{init_peak / 1e9} GB over {CARD_BYTES / 1e9} GB")
+    return params
+
+
 def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
                   max_len=SERVE_MAX_LEN, new_tokens=SERVE_NEW, prompts=None,
                   fixed=SERVE_PROMPTS, phase="5"):
@@ -1105,24 +1176,7 @@ def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
           f"{cfg.vocab}, {cfg.n_params() / 1e9:.3f} B parameters; launches "
           f"expected per admission and per decode step {expect}")
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
-    t = time.perf_counter()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = M.init(cfg, gen, device=device, dtype=torch.bfloat16)
-    _sync(device)
-    n_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
-    print(f"init: {n_bytes / 1e9:.3f} GB of weights in {time.perf_counter() - t:.3f} s")
-    init_peak = 0
-    if device.type == "cuda":
-        # init draws each leaf in float32 before the cast: its own peak
-        init_peak = torch.cuda.max_memory_allocated(device)
-        torch.cuda.reset_peak_memory_stats(device)
-    print(f"init peak device memory {init_peak / 1e9!r} GB")
-    check(init_peak < CARD_BYTES, f"init peak device memory "
-          f"{init_peak / 1e9} GB over {CARD_BYTES / 1e9} GB")
+    params = bf16_weights(device, cfg)
     eng = ServeEngine(cfg, params, ServeConfig(
         slots=slots, max_len=max_len, compute_dtype=torch.bfloat16,
         use_kernels=True, seed=0), device=device)
@@ -1224,13 +1278,29 @@ def _leaves(tree):
         yield tree
 
 
-def _close(got, want, atol, rtol):
-    """(ok, max |err|) of ``got`` against ``want`` under atol + rtol·|want|."""
+def _close(got, want, atol, rtol, rows=None):
+    """(ok, max |err|) of ``got`` against ``want`` under atol + rtol·|want|,
+    over the rows (first index) where the boolean ``rows`` holds, or all.
+    Taken a slab of rows at a time, so that a large float32 logits tensor
+    (Llama4-Scout's 9000 x 202,048) needs no whole-size temporaries."""
     import torch
 
-    err = (got.float() - want.float()).abs()
-    ok = bool(torch.all(err <= atol + rtol * want.float().abs()))
-    return ok, float(err.max()) if err.numel() else 0.0
+    n = got.shape[0] if got.dim() else 1
+    got, want = (t.reshape(n, -1) for t in (got, want))
+    step = max(1, (1 << 26) // max(1, got.shape[1]))
+    ok, worst = True, 0.0
+    for lo in range(0, n, step):
+        g, w = got[lo:lo + step].float(), want[lo:lo + step].float()
+        if rows is not None:
+            keep = rows[lo:lo + step]
+            g, w = g[keep], w[keep]
+        if not g.numel():
+            continue
+        err = (g - w).abs()
+        ok = ok and bool(torch.all(err <= atol + rtol * w.abs()))
+        m = float(err.max())
+        worst = max(worst, m) if m == m else m  # a NaN stays
+    return ok, worst
 
 
 def live_pairs(t_len, s_len, causal, window, q_offset):
@@ -1794,7 +1864,8 @@ def phase_model_kernels_vs_plain(device, arch=SERVE_ARCH, depth=None, cfg=None,
                                  steps=3, phase="6b"):
     """A full-width cut of ``arch`` to ``depth`` layers (default: one
     pattern group plus the tail), float32: prefill and decode logits with
-    the kernels against the plain versions, on the same tokens."""
+    the kernels against the plain versions, on the same tokens (a
+    stub-frontend arch: the same seeded N(0, 1) ``embeds``)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1811,22 +1882,30 @@ def phase_model_kernels_vs_plain(device, arch=SERVE_ARCH, depth=None, cfg=None,
     gen.manual_seed(2)
     params = M.init(cfg, gen, device=device, dtype=torch.float32)
     rng = np.random.default_rng(2)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, prompt_len)),
-                             device=device)
-    feed = rng.integers(0, cfg.vocab, size=steps)  # the same decode tokens
+    if cfg.frontend == "embed":
+        prompt = {"embeds": torch.as_tensor(rng.standard_normal(
+            (1, prompt_len, cfg.d_model), dtype=np.float32), device=device)}
+        feed = [{"embeds": torch.as_tensor(rng.standard_normal(
+            (1, 1, cfg.d_model), dtype=np.float32), device=device)}
+            for _ in range(steps)]
+    else:
+        prompt = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, size=(1, prompt_len)), device=device)}
+        feed = [{"tokens": torch.tensor([[int(tok)]], device=device)}
+                for tok in rng.integers(0, cfg.vocab, size=steps)]
     atol, rtol = MODEL_TOL
     out = {}
     for use_kernels in (True, False):
         before = sum(w.launches for w in kernels.values())
-        logits, cache, _ = M.prefill(cfg, params, {"tokens": tokens},
+        logits, cache, _ = M.prefill(cfg, params, prompt,
                                      max_cache_len=max_len,
                                      use_kernels=use_kernels)
         # the prefill cache is float32 here, as the serving cache is, and
         # padded to max_len: decode runs on it directly
         outs = [logits]
-        for i, tok in enumerate(feed):
-            batch = {"tokens": torch.tensor([[int(tok)]], device=device),
-                     "positions": torch.tensor([[prompt_len + i]], device=device)}
+        for i, step in enumerate(feed):  # the same decode inputs
+            batch = dict(step, positions=torch.tensor([[prompt_len + i]],
+                                                      device=device))
             outs.append(M.decode_step(cfg, params, batch, cache,
                                       use_kernels=use_kernels)[0])
         _sync(device)
@@ -1916,19 +1995,20 @@ def _three_pass(tokens, ids, slot_ids, n_experts, capacity):
 
 def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
                      d=1536, n_experts=40, top_k=8, capacity_factor=1.25,
-                     hq=24, hkv=8, dh=64):
-    """moe_dispatch against its plain version at the served shapes, with
-    times; flash_attention at Granite's prefill shape.  Returns the
-    moe_dispatch kernels-line entry and flash_attention's numbers at
-    Granite's shape."""
+                     hq=24, hkv=8, dh=64, phase="10a", arch=GRANITE_ARCH):
+    """moe_dispatch against its plain version at the served shapes of
+    ``arch`` (default Granite), with times; for Granite also the silu as
+    the reference rounds it and flash_attention at its prefill shape.
+    Returns the moe_dispatch kernels-line entry and flash_attention's
+    numbers at Granite's shape (None for another arch)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_dispatch import moe_dispatch
     from repro_torch.kernels.ref import attention_ref, moe_dispatch_ref
 
-    print("== phase 10a: moe_dispatch and flash_attention (Granite's shapes) "
-          "against their plain versions", flush=True)
+    print(f"== phase {phase}: moe_dispatch{' and flash_attention' if arch == GRANITE_ARCH else ''}"
+          f" ({arch}'s shapes) against their plain versions", flush=True)
     # repeated pairs against the plain version on the card: its index_add_
     # adds at most 3 float32 rows into one slot with atomics, in an order
     # that changes from run to run (~2 float32 ulps of the sum); a bfloat16
@@ -2042,6 +2122,8 @@ def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
                     "ptxas": ptxas,
                 }
 
+    if arch != GRANITE_ARCH:
+        return entry, None
     # the MLP/MoE activation as the reference rounds it (a bfloat16 rounding
     # after each step of 1 / (1 + exp(-x))) against F.silu, which rounds
     # once, at Granite's expert buffers in the prefill: what the port pays
@@ -2090,32 +2172,61 @@ def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
     return entry, flash
 
 
-def _routing_recorder():
+def _routing_recorder(force=None):
     """Wrap ``layers.route`` so that each MoE call's top-k expert ids are
-    recorded; returns (the list they go to, a function that unwraps)."""
+    recorded, sorted and as chosen; with ``force`` (ids as chosen, one
+    entry per call, as recorded), each call takes those ids instead, its
+    top-k gates the router's own gates there, renormalized as ``route``
+    does.  Returns (the sorted ids, the ids as chosen, a function that
+    unwraps)."""
+    import torch
     from repro_torch.models import layers as L
 
-    real, calls = L.route, []
+    real, calls, raw = L.route, [], []
 
     def recording(cfg, p, x2d):
-        out = real(cfg, p, x2d)
-        calls.append(out[2].sort(dim=-1).values)
-        return out
+        gates_all, top_gates, top_ids = real(cfg, p, x2d)
+        if force is not None:
+            top_ids = force[len(raw)]
+            top_gates = torch.gather(gates_all, 1, top_ids)
+            top_gates = top_gates / torch.clamp(
+                top_gates.sum(dim=-1, keepdim=True), min=1e-9)
+        raw.append(top_ids)
+        calls.append(top_ids.sort(dim=-1).values)
+        return gates_all, top_gates, top_ids
 
     L.route = recording
 
     def restore():
         L.route = real
 
-    return calls, restore
+    return calls, raw, restore
+
+
+def _kept(ids, cfg):
+    """(N, k) booleans: which of a MoE call's choices ``ids`` the capacity
+    rule keeps at a plan capacity of 1 (C slots an expert, filled in
+    token order)."""
+    import numpy as np
+    from repro_torch.kernels import ops as kops
+
+    n, k = ids.shape
+    c = max(int(np.ceil(n * k / cfg.n_experts * cfg.capacity_factor)), k)
+    return (kops.compute_slots(ids.reshape(-1), cfg.n_experts) < c).view(n, k)
 
 
 def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
-                    prompt_len=3000, max_len=SERVE_MAX_LEN, steps=3):
-    """A full-width float32 cut of Granite: (a) the moe_dispatch kernel
-    against its plain version with the same attention, bit for bit; (b)
-    all kernels against all plain versions, routing flips counted and the
-    logits held where routing agreed in every layer."""
+                    prompt_len=3000, max_len=SERVE_MAX_LEN, steps=3,
+                    phase="10b", walls=True):
+    """A full-width float32 cut of an MoE arch (Granite): (a) the
+    moe_dispatch kernel against its plain version with the same attention,
+    bit for bit; (b) all kernels against all plain versions: routing flips
+    counted, and the logits held at every position, as run where no
+    choice flipped, else on a run with the plain run's routing pinned (a
+    flip moves other tokens' capacity slots, so a position whose own
+    routing agreed may still see another token dropped); then, with
+    ``walls``, the prefill's wall on the float32 attention kernel and
+    on the one before."""
     import dataclasses
     import numpy as np
     import torch
@@ -2126,8 +2237,8 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
 
     base = cfg or get_config(arch)
     cfg = dataclasses.replace(base, n_layers=depth)
-    print(f"== phase 10b: {cfg.name} at full width and depth {depth}, kernels "
-          "against plain versions (float32)", flush=True)
+    print(f"== phase {phase}: {cfg.name} at full width and depth {depth}, "
+          "kernels against plain versions (float32)", flush=True)
     kernels = _lm_kernels()
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
@@ -2137,11 +2248,12 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
                              device=device)
     feed = rng.integers(0, cfg.vocab, size=steps)
 
-    def run(use_kernels):
+    def run(use_kernels, force=None):
         """(logits of the prefill and each decode step, routing per MoE
-        call, launches by kernel)."""
+        call (sorted ids, and as chosen), launches by kernel); ``force``:
+        the routing each MoE call takes (``_routing_recorder``)."""
         before = {k: w.launches for k, w in kernels.items()}
-        calls, restore = _routing_recorder()
+        calls, raw, restore = _routing_recorder(force)
         try:
             logits, cache, _ = M.prefill(cfg, params, {"tokens": tokens},
                                          max_cache_len=max_len,
@@ -2156,11 +2268,11 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
             _sync(device)
         finally:
             restore()
-        return outs, calls, {k: w.launches - before[k]
-                             for k, w in kernels.items()}
+        return outs, (calls, raw), {k: w.launches - before[k]
+                                    for k, w in kernels.items()}
 
     n_moe = expected_launches(cfg)["moe_dispatch"][0]
-    with_kernels, routes_k, launched = run(True)
+    with_kernels, (routes_k, raw_k), launched = run(True)
     check(launched["moe_dispatch"] == n_moe * (1 + steps)
           and launched["flash_attention"] == n_moe,
           f"kernel run launched {launched}")
@@ -2179,10 +2291,11 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
     print(f"{cfg.name} depth {depth}: moe_dispatch kernel vs plain version, "
           f"same attention: prefill and {steps} decode steps' logits equal bit "
           "for bit")
+    del plain_dispatch  # one set of logits less on the card
     # (b) every kernel against every plain version
-    plain, routes_p, launched = run(False)
+    plain, (routes_p, raw_p), launched = run(False)
     check(sum(launched.values()) == 0, f"plain run launched {launched}")
-    # routing: one (N, k) record per MoE call, prefill's first
+    # routing: one (N, k) record per MoE call, the prefill's depth first
     differ = [(a != b).any(dim=-1) for a, b in zip(routes_k, routes_p)]
     n_choices = sum(x.numel() for x in differ)
     n_flips = int(sum(int(x.sum()) for x in differ))
@@ -2192,19 +2305,51 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
           f"{n_flips} of {n_choices} routing choices differ, over "
           f"{ROUTING_FLIPS_MAX:.0%}")
     atol, rtol = MODEL_TOL
-    for i, (got, want) in enumerate(zip(with_kernels, plain)):
+    held, how = with_kernels, "as run"
+    if n_flips:
+        # a flip moves the capacity slots of the tokens after it on both
+        # experts: one whose own routing agreed may be dropped or kept
+        # where it was not, and every later position attends to the
+        # changed ones.  Where, and how far the logits moved there:
+        flipped = torch.stack(differ[:depth]).any(dim=0)
+        moved = torch.stack([(_kept(a, cfg) != _kept(b, cfg)).any(dim=-1)
+                             for a, b in zip(raw_k[:depth], raw_p[:depth])]
+                            ).any(dim=0) & ~flipped
+        first = int(flipped.nonzero()[0, 0]) if bool(flipped.any()) else None
+        _, err_agreed = _close(with_kernels[0][0], plain[0][0], atol, rtol,
+                               rows=~flipped)
+        before_first = (torch.arange(prompt_len, device=device)
+                        < (prompt_len if first is None else first))
+        _, err_before = _close(with_kernels[0][0], plain[0][0], atol, rtol,
+                               rows=before_first)
+        print(f"the prefill's routing flipped at positions "
+              f"{flipped.nonzero()[:, 0].tolist()}; capacity kept or dropped "
+              f"another choice at {int(moved.sum())} positions whose own "
+              f"routing agreed (first {moved.nonzero()[:1, 0].tolist()}); "
+              f"as run, kernels vs plain max |err| {err_agreed!r} where the "
+              f"position's own routing agreed, {err_before!r} before the "
+              f"first flip (unchecked: other choices differ in their past)")
+        # every choice pinned to the plain run's: the same tokens dropped
+        # and kept, so every position is held
+        del with_kernels
+        held, (routes_f, _), launched = run(True, force=raw_p)
+        check(launched["flash_attention"] == n_moe
+              and all(torch.equal(a, b) for a, b in zip(routes_f, routes_p)),
+              f"the pinned run launched {launched} or routed otherwise")
+        how = "with the plain run's routing pinned"
+    for i, (got, want) in enumerate(zip(held, plain)):
         label = "prefill" if i == 0 else f"decode step {i}"
-        # the MoE calls of this forward, one per layer
-        flips = torch.stack(differ[i * depth:(i + 1) * depth]).any(dim=0)
-        agreed = ~flips
-        ok, err = _close(got[0][agreed], want[0][agreed], atol, rtol)
+        ok, err = _close(got, want, atol, rtol)
         check(ok and bool(torch.isfinite(got).all()),
-              f"{label}: max |err| {err} over atol {atol} rtol {rtol} at the "
-              "positions whose routing agreed")
-        print(f"{cfg.name} depth {depth}, {label} logits {tuple(got.shape)}: "
-              f"routing agreed at {int(agreed.sum())} of {agreed.numel()} "
-              f"positions; there kernels vs plain max |err| {err!r} (atol "
-              f"{atol}, rtol {rtol}; max |logit| {float(want.abs().max())!r})")
+              f"{label} ({how}): max |err| {err} over atol {atol} rtol {rtol}")
+        print(f"{cfg.name} depth {depth}, {label} logits {tuple(got.shape)} "
+              f"({how}): kernels vs plain max |err| {err!r} (atol {atol}, "
+              f"rtol {rtol}; max |logit| {float(want.abs().max())!r})")
+    del held
+    del plain
+    if not walls:
+        del params
+        return
 
     # the float32 prefill end to end: its wall and flash_attention's device
     # ms within it, on the float32 route's kernel and, in its place through
@@ -2358,11 +2503,15 @@ def chunked_attention_step_ms(device, cfg, batch, seq):
 
 
 def phase_training(device, arch=TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
-                   batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, phase="11a", lr=TRAIN_LR,
+                   profile=True):
     """Phase 11a: ``arch`` trained through ``repro_torch.launch.train`` at
     full width and depth, bf16 compute over float32 masters, remat on, the
-    geo-planned ingest on; checks finite, falling losses and peak memory,
-    prints step walls, tokens/s, ``train_mfu`` and a profiled warm step."""
+    geo-planned ingest on (a stub-frontend arch on the launcher's seeded
+    ``embeds``); checks finite, falling losses and peak memory, prints step
+    walls, tokens/s, ``train_mfu`` and, with ``profile``, a profiled warm
+    step and the chunked attention's share of it.  ``lr``: the peak
+    learning rate (after 2 warm-up steps, cosine to the end)."""
     import math
 
     import torch
@@ -2370,10 +2519,11 @@ def phase_training(device, arch=TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
 
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduced else cfg
-    print(f"== phase 11a: training {cfg.name} through repro_torch.launch.train "
+    print(f"== phase {phase}: training {cfg.name} through repro_torch.launch.train "
           f"({cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
           f"{cfg.n_params() / 1e9:.3f} B parameters; batch {batch} x {seq}, "
-          f"{steps} AdamW steps, bf16 compute, float32 masters, remat)",
+          f"{steps} AdamW steps at peak lr {lr}, bf16 compute, float32 "
+          "masters, remat)",
           flush=True)
     if device.type == "cuda":
         _sync(device)  # a CUDA context first, where this phase runs alone
@@ -2384,13 +2534,14 @@ def phase_training(device, arch=TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
     kernels = dict(_lm_kernels(), segment_sum=segment_sum)
     records = []
     argv = _train_argv(arch, reduced, steps, batch, seq, "--dtype", "bfloat16",
-                       "--remat", "--warmup", "2", "--lr", "3e-4",
+                       "--remat", "--warmup", "2", "--lr", lr,
                        "--geo-ingest", "--device", str(device))
     for w in kernels.values():
         w.launches = 0
     t = time.perf_counter()
-    state, lines = _run_launcher(argv, records, device,
-                                 profile_step=steps if device.type == "cuda" else None)
+    state, lines = _run_launcher(
+        argv, records, device,
+        profile_step=steps if profile and device.type == "cuda" else None)
     wall = time.perf_counter() - t
     launches = {k: w.launches for k, w in kernels.items()}
     check(not any(launches.values()),
@@ -2461,10 +2612,10 @@ def _grads(cfg, params, batch):
 
 
 def phase_training_float32_cut(device, arch=TRAIN_ARCH, depth=2, seq=256,
-                               reduced=False):
+                               reduced=False, phase="11b"):
     """Phase 11b: a full-width cut of ``arch`` to ``depth`` layers, float32
     (no TF32): ``loss_fn`` and every gradient on the card against the same
-    on the CPU."""
+    on the CPU.  A stub-frontend arch takes seeded N(0, 1) ``embeds``."""
     import dataclasses
     import numpy as np
     import torch
@@ -2474,8 +2625,8 @@ def phase_training_float32_cut(device, arch=TRAIN_ARCH, depth=2, seq=256,
     torch.set_float32_matmul_precision("highest")
     base = get_config(arch).reduced() if reduced else get_config(arch)
     cfg = dataclasses.replace(base, n_layers=depth)
-    print(f"== phase 11b: {cfg.name} at full width and depth {depth}, loss and "
-          f"gradients on the card against the CPU (float32, B=1, T={seq})",
+    print(f"== phase {phase}: {cfg.name} at full width and depth {depth}, loss "
+          f"and gradients on the card against the CPU (float32, B=1, T={seq})",
           flush=True)
     params = M.init(cfg, torch.Generator(device=device).manual_seed(3),
                     device=device)
@@ -2483,6 +2634,9 @@ def phase_training_float32_cut(device, arch=TRAIN_ARCH, depth=2, seq=256,
     toks = rng.integers(0, cfg.vocab, size=(1, seq + 1))
     batch = {"tokens": torch.as_tensor(toks[:, :-1]),
              "labels": torch.as_tensor(toks[:, 1:])}
+    if cfg.frontend == "embed":
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (1, seq, cfg.d_model), dtype=np.float32))
     on_card = {k: v.to(device) for k, v in batch.items()}
     loss, grads = _grads(cfg, params, on_card)
     cpu = torch.device("cpu")
@@ -2673,7 +2827,7 @@ def tenant_jobs(device, n_jobs=SCHED_JOBS, n_docs=N_DOCS,
 
 
 def phase_schedule(device, n_docs=N_DOCS, words_per_doc=WORDS_PER_DOC,
-                   vocab=VOCAB, n_restarts=N_RESTARTS, steps=STEPS,
+                   vocab=VOCAB, n_restarts=SCHED_RESTARTS, steps=SCHED_STEPS,
                    n_jobs=SCHED_JOBS):
     """Phase 12a: four word-count tenants on the 8-DC platform through
     ``GeoSchedule``; returns (jobs, per_source, joint schedule, launches)."""
@@ -3156,7 +3310,7 @@ def timed_plan(pipe, device, *args, **kwargs):
 
 
 def phase_pipeline(device, n_docs=N_DOCS, words_per_doc=WORDS_PER_DOC,
-                   vocab=VOCAB, n_restarts=N_RESTARTS, steps=STEPS,
+                   vocab=VOCAB, n_restarts=SCHED_RESTARTS, steps=SCHED_STEPS,
                    pair_opt=PIPE_PAIR_OPT, profile_steps=PROFILE_STEPS):
     """Phase 13a: a 3-stage word-count chain through ``GeoPipeline``;
     returns (measured alphas, out_scales, the end_to_end solver's
@@ -3353,7 +3507,7 @@ def phase_pipeline_pair(device, n_restarts, steps):
 
 
 def phase_pipeline_schedule(device, jobs, alphas, out_scales,
-                            n_restarts=N_RESTARTS, steps=STEPS,
+                            n_restarts=SCHED_RESTARTS, steps=SCHED_STEPS,
                             online_restarts=ONLINE_RESTARTS,
                             online_steps=ONLINE_STEPS):
     """Phase 13b: 13a's first two stages on tenant 0's corpus, inside a
@@ -3729,7 +3883,7 @@ def phase_moe_mesh(device, mesh, depth=MESH_DEPTH, prompts=MESH_PROMPTS,
 
     def prefill(p, tokens, on_mesh):
         """(logits, moe_dispatch launches, routes, synchronized wall s)."""
-        calls, restore = _routing_recorder()
+        calls, _, restore = _routing_recorder()
         before = {k: w.launches for k, w in kernels.items()}
         _sync(device)
         t = time.perf_counter()
@@ -4898,8 +5052,404 @@ def phase_examples(device, train_steps=EXAMPLE_TRAIN_STEPS):
     return want["flash_attention"], err17e
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the model families that no earlier phase runs on the card
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CardArch:
+    """One arch of phase 18 and what of it runs on the card: the layers
+    served (``depth``, None for all), the serving traffic (``max_len`` and
+    the prompt lengths, 32 new tokens each; a stub-frontend arch is
+    prefilled with the one length and decoded alone), the depth of the
+    float32 cut held against the plain versions, whether it trains at
+    full depth (``train``, at the peak learning rate ``train_lr``) and
+    whether it runs the float32 training cut (``train_cut``)."""
+
+    phase: str
+    arch: str
+    depth: int | None
+    max_len: int
+    prompts: tuple
+    cut_depth: int
+    train: bool
+    train_cut: bool
+    train_lr: str = TRAIN_LR
+
+
+#: the six archs, each at full width.  Llama4-Scout is served at depth 8:
+#: two iRoPE groups (three windowed RoPE layers, one global NoPE layer),
+#: the deepest whole groups that leave room for a 9000-token prefill's
+#: logits at vocab 202,048 (its 48 layers are 203 GB in bf16); the 9000
+#: prompt crosses its 8192 window in prefill and decode.  Training needs
+#: 16 bytes a parameter: Mistral-NeMo (195 GB) and Llama4-Scout do not
+#: train; StableLM and Phi-3 add no model code to what OLMo and MusicGen
+#: train, so they run the float32 training cut only.  MusicGen trains at a
+#: peak lr of 3e-5: at phase 11a's 3e-4 its 48 layers on the stub
+#: frontend's N(0, 1) embeds diverge from step 4 (losses 8.26, 8.05,
+#: 6.83, 10.53, 17.31 ... 10.23 on an H100; the same in float32 compute,
+#: so not bf16's rounding), and spike at 1e-4 and 5e-5; at 3e-5 they fall
+#: step by step (8.26 to 6.79)
+CARD_ARCHS = (
+    CardArch("18a", "olmo-1b", None, SERVE_MAX_LEN, MAMBA_PROMPTS, 2, True, True),
+    CardArch("18b", "stablelm-1.6b", None, SERVE_MAX_LEN, MAMBA_PROMPTS, 2,
+             False, True),
+    CardArch("18c", "mistral-nemo-12b", None, SERVE_MAX_LEN, MAMBA_PROMPTS, 1,
+             False, False),
+    CardArch("18d", "llama4-scout-17b-a16e", 8, 9216, (1, 17, 3000, 9000), 4,
+             False, False),
+    CardArch("18e", "phi-3-vision-4.2b", None, SERVE_MAX_LEN, (3000,), 2,
+             False, True),
+    CardArch("18f", "musicgen-large", None, SERVE_MAX_LEN, (3000,), 2, True,
+             True, train_lr="3e-5"),
+)
+#: the reduced configs' traffic, for a rehearsal on the CPU: prompts past
+#: Llama4-Scout's reduced 32-token window; the card's 8 training steps on
+#: fewer tokens (at 3 steps of 2 x 32 the reduced MusicGen's loss does not
+#: fall, in the reference's launcher either: its stub frontend's random
+#: embeds leave only the labels' marginal to learn)
+REDUCED_TRAFFIC = dict(max_len=64, prompts=(1, 17, 40), new_tokens=6,
+                       train=dict(steps=TRAIN_STEPS, batch=8, seq=128,
+                                  lr=TRAIN_LR),
+                       cut_seq=32)
+
+
+def card_arch_config(spec, reduced=False):
+    """``spec``'s config, reduced for a rehearsal, cut to its depth."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(spec.arch)
+    cfg = cfg.reduced() if reduced else cfg
+    if spec.depth is not None and not reduced:
+        cfg = dataclasses.replace(cfg, n_layers=spec.depth)
+    return cfg
+
+
+def card_arch_bytes(spec, slots=SERVE_SLOTS):
+    """What each run of ``spec`` holds on the card at full width, reckoned
+    from the config (activations aside; the runs check the measured
+    peaks): serving, 2 bytes a parameter of the served depth, the longest
+    prefill's logits in bf16 and float32 (6 bytes a row and vocab entry)
+    and the float32 cache of every slot (one for a stub-frontend arch);
+    the float32 cut, 4 bytes a parameter of its depth and two sets of its
+    prefill's float32 logits (the kernels' and the plain versions');
+    training, 16 bytes a parameter (float32 masters, gradients and two
+    moments) where it trains at full depth."""
+    from repro_torch.configs import get_config
+
+    full = get_config(spec.arch)
+    served = card_arch_config(spec)
+    cut = dataclasses.replace(full, n_layers=spec.cut_depth)
+    longest = max(spec.prompts)
+    n_attn = expected_launches(served)["flash_attention"][0]
+    rows = slots if full.frontend is None else 1
+    cache = 4 * 2 * n_attn * full.n_kv_heads * full.head_dim_ * spec.max_len * rows
+    out = {"serving": 2 * served.n_params() + 6 * longest * full.vocab + cache,
+           "float32 cut": 4 * cut.n_params() + 2 * 4 * longest * full.vocab}
+    if spec.train:
+        out["training"] = 16 * full.n_params()
+    return out
+
+
+def _entry_recorder():
+    """Record the C entry every flash_attention launch resolves
+    (``kernels.flash_attention._entry``, which its check calls once a
+    launch); returns (the list, a function that unwraps)."""
+    import importlib
+
+    # the module, which the package's function of the same name shadows
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    real, entries = FA._entry, []
+
+    def entry(dtype, dh):
+        name = real(dtype, dh)
+        entries.append(name)
+        return name
+
+    FA._entry = entry
+
+    def restore():
+        FA._entry = real
+
+    return entries, restore
+
+
+def phase_embeds_serving(device, cfg, prompt_len=3000, steps=SERVE_NEW,
+                         max_len=SERVE_MAX_LEN, phase="18e"):
+    """A stub-frontend arch served through the model's own entry points
+    (``ServeEngine`` takes token-in archs only, as the reference's does):
+    ``M.prefill`` of seeded N(0, 1) ``embeds`` (1, T, d) in bfloat16 with
+    the kernels, its cache made float32 as the engine's serving cache is,
+    then ``steps`` decode steps, each fed a (1, 1, d) embed at its
+    position.  Every logit finite, every greedy token in the vocabulary,
+    the launches exactly ``expected_launches``' per prefill and per step,
+    the init and serving peaks under 80 GB.  Returns the run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.segment_reduce import segment_sum
+    from repro_torch.models import model as M
+
+    print(f"== phase {phase}: {cfg.name} prefill and decode of embeds "
+          "(model.prefill, model.decode_step, bfloat16, kernels on)",
+          flush=True)
+    kernels = _lm_kernels()
+    expect = expected_launches(cfg)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {cfg.n_params() / 1e9:.3f} B parameters; launches "
+          f"expected per prefill and per decode step {expect}")
+    params = bf16_weights(device, cfg)
+    rng = np.random.default_rng(0)
+
+    def embeds(t_len):
+        return torch.as_tensor(rng.standard_normal(
+            (1, t_len, cfg.d_model), dtype=np.float32)).to(device, torch.bfloat16)
+
+    prompt = {"embeds": embeds(prompt_len)}
+    feed = [{"embeds": embeds(1),
+             "positions": torch.tensor([[prompt_len + i]], device=device)}
+            for i in range(steps)]
+    calls = []
+
+    def call(fn, *args, **kwargs):
+        _sync(device)
+        before = {k: w.launches for k, w in kernels.items()}
+        t0 = time.perf_counter()
+        logits, cache, _ = fn(*args, **kwargs)
+        token = int(torch.argmax(logits[0, -1]))
+        finite = bool(torch.isfinite(logits).all())
+        _sync(device)
+        calls.append({"s": time.perf_counter() - t0, "finite": finite,
+                      "token": token,
+                      "launched": {k: w.launches - before[k]
+                                   for k, w in kernels.items()}})
+        return cache
+
+    for w in (*kernels.values(), segment_sum):
+        w.launches = 0
+    t = time.perf_counter()
+    cache = call(M.prefill, cfg, params, prompt, max_cache_len=max_len,
+                 use_kernels=True)
+    # float32, as the serving cache is whatever the compute dtype
+    cache = M._tree_map(lambda _, a: a.float(), cache)
+    for batch in feed:
+        call(M.decode_step, cfg, params, batch, cache, use_kernels=True)
+    _sync(device)
+    wall = time.perf_counter() - t
+    launches = {k: w.launches for k, w in kernels.items()}
+    launches["segment_sum"] = segment_sum.launches
+
+    pre, dec = calls[0], calls[1:]
+    tokens = [x["token"] for x in calls]
+    check(all(x["finite"] for x in calls), "a logit is not finite")
+    check(len(tokens) == steps + 1 and all(0 <= tok < cfg.vocab for tok in tokens),
+          f"greedy tokens {tokens}: not {steps + 1} in [0, {cfg.vocab})")
+    for kind, xs, col in (("prefill", [pre], 0), ("decode step", dec, 1)):
+        want = {k: v[col] for k, v in expect.items()}
+        for x in xs:
+            check(x["launched"] == want,
+                  f"{kind} launched {x['launched']}, wanted {want}")
+    for k, (per_prefill, per_step) in expect.items():
+        total = per_prefill + per_step * len(dec)
+        check(launches[k] == total,
+              f"{k}: {launches[k]} launches in the run, wanted {total}")
+    check(launches["flash_attention"] > 0, "the prefill never launched "
+          "flash_attention")
+    check(launches["segment_sum"] == 0, "serving launched segment_sum")
+    decode_s = [x["s"] for x in dec]
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    print(f"prefill T={prompt_len}: {pre['s']!r} s; decode: {len(dec)} steps "
+          f"in {sum(decode_s)!r} s: {sum(decode_s) / len(dec) * 1e3!r} ms/step "
+          f"(median {statistics.median(decode_s) * 1e3!r}, first step "
+          f"{decode_s[0] * 1e3!r} ms); greedy tokens {tokens}")
+    print(f"wall {wall!r} s; launches {launches}; peak device memory "
+          f"{peak / 1e9!r} GB")
+    check(peak < CARD_BYTES, f"peak device memory {peak / 1e9} GB over "
+          f"{CARD_BYTES / 1e9} GB")
+    if device.type == "cuda":
+        profile_breakdown(lambda: M.decode_step(cfg, params, feed[0], cache,
+                                                use_kernels=True),
+                          "decode step (1 row)")
+        profile_breakdown(lambda: M.prefill(cfg, params, prompt,
+                                            max_cache_len=max_len,
+                                            use_kernels=True),
+                          f"prefill of {prompt_len} embeds")
+    return launches
+
+
+def _windows(cfg):
+    """The attention windows of ``cfg``'s layers (None: full causal)."""
+    ws = {b.window for b in cfg.pattern + cfg.tail if b.mixer == "attn"}
+    return sorted(ws, key=lambda w: (w is None, w or 0))
+
+
+def phase_arch_attention(device, cfg, t_len, phase, seed=6):
+    """flash_attention at ``cfg``'s prefill shape (1, Hq, T, Dh) with its kv
+    heads, for each window its layers use, in bfloat16 and float32: held
+    to ``KERNEL_TOL`` against the plain version on the same inputs and
+    timed (``flash_timings``; SDPA gets K and V repeated to the query
+    heads, the window as a boolean mask).  Returns (max |err|, {shape
+    label: the bf16 timings with the float32 ones inside})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    print(f"== phase {phase}: flash_attention at {cfg.name}'s prefill shape "
+          f"(1, {hq}, {t_len}, {dh}) Hkv {hkv}, windows {_windows(cfg)}, "
+          "against its plain version", flush=True)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    worst, timed = 0.0, {}
+    for window in _windows(cfg):
+        label = f"(1, {hq}, {t_len}, {dh}) Hkv {hkv} window {window}"
+        mask = None
+        if window is not None:
+            pos = torch.arange(t_len, device=device)
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+        for dtype in (torch.bfloat16, torch.float32):
+            atol, rtol = KERNEL_TOL[str(dtype)]
+            q, k, v = (torch.randn((1, h, t_len, dh), generator=gen)
+                       .to(device, dtype) for h in (hq, hkv, hkv))
+            got = flash_attention(q, k, v, causal=True, window=window)
+            _sync(device)
+            want = attention_ref(q, k, v, causal=True, window=window)
+            ok, err = _close(got, want, atol, rtol)
+            del got, want
+            check(ok and err == err, f"flash_attention {label} {dtype}: max "
+                  f"|err| {err} over atol {atol} rtol {rtol}")
+            worst = max(worst, err)
+            print(f"flash_attention {label} causal {dtype}: max |err| {err!r} "
+                  f"(atol {atol}, rtol {rtol})")
+            kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+            times = flash_timings(
+                q, k, v, window,
+                lambda q=q, kr=kr, vr=vr: F.scaled_dot_product_attention(
+                    q, kr, vr, attn_mask=mask, is_causal=mask is None))
+            times["max_abs_err"] = err
+            if dtype == torch.float32:
+                timed[label]["float32"] = times
+            else:
+                timed[label] = dict(times, shape={
+                    "B": 1, "Hq": hq, "Hkv": hkv, "T": t_len, "S": t_len,
+                    "Dh": dh, "window": window, "dtype": str(dtype)})
+            del q, k, v, kr, vr
+    return worst, timed
+
+
+def phase_card_arch(device, spec, reduced=False, seen_shapes=None):
+    """Phase 18 for one arch (``spec``): serving with the kernels, the
+    kernels at its shapes against their plain versions (``flash_attention``
+    at a shape not in the set ``seen_shapes``, which gets it), a float32
+    cut against the plain versions, then training where ``spec`` trains.
+    Returns what it adds to the kernels line."""
+    import torch
+    from repro_torch.kernels.flash_attention import _entry
+
+    t = time.perf_counter()
+    seen_shapes = set() if seen_shapes is None else seen_shapes
+    cfg = card_arch_config(spec, reduced)
+    traffic = (REDUCED_TRAFFIC if reduced else
+               dict(max_len=spec.max_len, prompts=spec.prompts,
+                    new_tokens=SERVE_NEW,
+                    train=dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                               seq=TRAIN_SEQ, lr=spec.train_lr), cut_seq=256))
+    prompts = (traffic["prompts"] if cfg.frontend is None
+               else (max(traffic["prompts"]),))
+    reckoned = card_arch_bytes(spec)
+    print(f"== phase {spec.phase}: {spec.arch} on the card (depth served "
+          f"{spec.depth or 'all'}, prompts {prompts}, max_len "
+          f"{traffic['max_len']}); reckoned at full width: "
+          + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in reckoned.items()),
+          flush=True)
+    check(all(v < CARD_BYTES for v in reckoned.values()),
+          f"{spec.arch}: a run reckons over {CARD_BYTES / 1e9} GB: {reckoned}")
+    out = {"arch": spec.arch}
+
+    # serving, the kernels counted from 0 and the entries they resolve
+    entries, restore = _entry_recorder()
+    try:
+        if cfg.frontend is None:
+            launched = phase_serving(
+                device, cfg=cfg, max_len=traffic["max_len"],
+                new_tokens=traffic["new_tokens"], phase=spec.phase,
+                prompts=serve_prompts(cfg.vocab, fixed=prompts, n_random=0))
+        else:
+            launched = phase_embeds_serving(
+                device, cfg, prompt_len=prompts[0],
+                steps=traffic["new_tokens"], max_len=traffic["max_len"],
+                phase=spec.phase)
+    finally:
+        restore()
+    want = _entry(torch.bfloat16, cfg.head_dim_)
+    check(len(entries) >= launched["flash_attention"] > 0
+          and set(entries) == {want},
+          f"{spec.arch}: flash_attention resolved {sorted(set(entries))} in "
+          f"{len(entries)} launches, wanted {want} in each")
+    print(f"{spec.arch}: every flash_attention launch ({len(entries)}, "
+          f"{launched['flash_attention']} while counted) took {want} at Dh "
+          f"{cfg.head_dim_}")
+    out["launches"] = launched
+    free_device_memory(device)
+
+    # the kernels at the served shapes, against their plain versions
+    longest = max(prompts)
+    shape = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, longest,
+             tuple(_windows(cfg)))
+    if shape not in seen_shapes:
+        out["flash_err"], out["flash"] = phase_arch_attention(
+            device, cfg, longest, f"{spec.phase} kernels")
+        seen_shapes.add(shape)
+    else:
+        print(f"{spec.arch}: flash_attention's shape {shape} was held above")
+    if cfg.n_experts:
+        out["moe"], _ = phase_moe_kernel(
+            device, launched, prompt_len=longest, d=cfg.d_model,
+            n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, phase=f"{spec.phase} kernels",
+            arch=spec.arch)
+    free_device_memory(device)
+
+    # the float32 cut (of the served config, to cut_depth layers): kernels
+    # against plain versions
+    f32 = dict(cfg=cfg, depth=spec.cut_depth, prompt_len=longest,
+               max_len=traffic["max_len"], phase=f"{spec.phase} float32")
+    if cfg.n_experts:
+        phase_moe_model(device, walls=False, **f32)
+    else:
+        phase_model_kernels_vs_plain(device, **f32)
+    free_device_memory(device)
+
+    if spec.train:
+        phase_training(device, spec.arch, reduced=reduced, profile=False,
+                       phase=f"{spec.phase} training", **traffic["train"])
+        free_device_memory(device)
+    if spec.train_cut:
+        phase_training_float32_cut(device, spec.arch, depth=2,
+                                   seq=traffic["cut_seq"], reduced=reduced,
+                                   phase=f"{spec.phase} training float32")
+        free_device_memory(device)
+    out["s"] = time.perf_counter() - t
+    print(f"phase {spec.phase} ({spec.arch}): {out['s']:.1f} s", flush=True)
+    return out
+
+
+def phase_card_archs(device, archs=CARD_ARCHS, reduced=False):
+    """Phase 18: each of ``archs`` through :func:`phase_card_arch`, the
+    card's memory freed between them.  Returns their results by arch."""
+    t = time.perf_counter()
+    seen, done = set(), {}
+    for spec in archs:
+        done[spec.arch] = phase_card_arch(device, spec, reduced, seen)
+    print(f"phase 18: {time.perf_counter() - t:.1f} s ("
+          + ", ".join(f"{r['arch']} {r['s']:.1f} s" for r in done.values())
+          + f") on {card_name_and_limit()}", flush=True)
+    return done
+
+
 def free_device_memory(device) -> None:
-    """Return what the finished phases held to the card."""
+    """Return what the finished phases held to the card; print the run's
+    wall so far."""
     import gc
 
     import torch
@@ -4908,7 +5458,8 @@ def free_device_memory(device) -> None:
     if device.type == "cuda":
         torch.cuda.empty_cache()
         print(f"device memory allocated after freeing: "
-              f"{torch.cuda.memory_allocated(device) / 1e9!r} GB")
+              f"{torch.cuda.memory_allocated(device) / 1e9!r} GB; "
+              f"{time.perf_counter() - _T0:.1f} s into the run")
 
 
 def main() -> None:
@@ -4929,6 +5480,7 @@ def main() -> None:
     entries = [phase_segment_sum(device, reducer_inputs, launches)]
     phase_batched_solver(device)
     solver_device_share(device)
+    free_device_memory(device)
     served = phase_serving(device)
     entries += phase_lm_kernels(device, served)
     phase_model_kernels_vs_plain(device)
@@ -4952,6 +5504,7 @@ def main() -> None:
     jobs, joint, schedule_launches = phase_schedule(device)
     online = phase_online(device, jobs, joint)
     phase_card_vs_cpu(device, jobs, joint, *online)
+    free_device_memory(device)
     t13 = time.perf_counter()
     alphas, out_scales, recorded, pipeline_launches = phase_pipeline(device)
     phase_pipeline_schedule(device, jobs, alphas, out_scales)
@@ -4974,6 +5527,8 @@ def main() -> None:
     tp_launches = phase_tensor_parallel(device, mesh_14d)
     free_device_memory(device)
     example_launches, example_err = phase_examples(device)
+    free_device_memory(device)
+    card = phase_card_archs(device)
     moe["launches_by_path"]["expert parallel (14b)"] = ep_launches["moe_dispatch"]
     moe["launches"] += ep_launches["moe_dispatch"]
     segsum = entries[0]
@@ -5000,6 +5555,22 @@ def main() -> None:
             e["launches_by_path"]["tensor parallel (16b)"] = \
                 tp_launches[e["name"]]
             e["launches"] += tp_launches[e["name"]]
+    # phase 18: each arch's serving launches, and the kernels at its shapes
+    flash["card_archs"] = {}
+    for arch, r in card.items():
+        for e in (flash, moe):
+            n = r["launches"][e["name"]]
+            if n:
+                e["launches_by_path"][f"{arch} (18)"] = n
+                e["launches"] += n
+        if "flash" in r:
+            flash["max_abs_err"] = max(flash["max_abs_err"], r["flash_err"])
+            flash["card_archs"].update(r["flash"])
+        if "moe" in r:
+            moe["max_abs_err"] = max(moe["max_abs_err"], r["moe"]["max_abs_err"])
+            moe[f"{arch}_prefill"] = {k: v for k, v in r["moe"].items()
+                                      if k not in ("name", "route", "source",
+                                                   "replaces", "ptxas")}
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {

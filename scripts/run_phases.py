@@ -15,7 +15,10 @@ Granite-MoE's float32 depth-4 cut (kernels against plain versions, and the
 float32 prefill's wall on the float32 attention kernel and on the one before),
 ``14`` the planner in multi-device training, ``15`` the dry run at the
 production meshes, held to the card, ``16`` the tensor-parallel layout on
-two processes sharing the card, ``17`` the port's examples, after phase 1 (the card's name and
+two processes sharing the card, ``17`` the port's examples, ``18`` the six model families no other phase
+runs (``18a`` OLMo-1B, ``18b`` StableLM-1.6B, ``18c`` Mistral-NeMo-12B,
+``18d`` Llama4-Scout at depth 8, ``18e`` Phi-3-vision, ``18f``
+MusicGen-large, each alone), after phase 1 (the card's name and
 power limit, and the kernels built).  Phases 6a, 8a and 10a run on
 stand-in launch counts (they print their kernels-line entries).  Needs a
 CUDA card.
@@ -28,8 +31,9 @@ from pathlib import Path
 
 ap = argparse.ArgumentParser()
 ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
-ap.add_argument("phases", nargs="+", choices=["5", "6a", "7", "8a", "10a", "10b",
-                                              "14", "15", "16", "17"])
+ap.add_argument("phases", nargs="+", choices=[
+    "5", "6a", "7", "8a", "10a", "10b", "14", "15", "16", "17", "18",
+    "18a", "18b", "18c", "18d", "18e", "18f"])
 args = ap.parse_args()
 tree = Path(args.tree).resolve()
 sys.path[:0] = [str(tree), str(tree / "src")]
@@ -68,6 +72,11 @@ for phase in args.phases:
         print(json.dumps(C.phase_tensor_parallel(device)))
     elif phase == "17":
         print(json.dumps(C.phase_examples(device)))
+    elif phase == "18":
+        print(json.dumps(C.phase_card_archs(device), default=str))
+    elif phase.startswith("18"):
+        spec = next(s for s in C.CARD_ARCHS if s.phase == phase)
+        print(json.dumps(C.phase_card_arch(device, spec), default=str))
     else:
         print(json.dumps(C.phase_dryrun(device)[1], default=str))
     C.free_device_memory(device)

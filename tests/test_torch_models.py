@@ -32,10 +32,16 @@ CPU = torch.device("cpu")
 #: RecurrentGemma (RG-LRU + local attention + tail), qwen3 (qk-norm, tied
 #: embeddings, GQA), stablelm (layernorm, MHA), olmo (non-parametric LN),
 #: Falcon-Mamba (Mamba-1 mixers only, untied embeddings), Granite-MoE
-#: (GQA attention + capacity-dropped top-k MoE FFN, tied embeddings)
+#: (GQA attention + capacity-dropped top-k MoE FFN, tied embeddings),
+#: Mistral-NeMo (GQA, Dh 128 set apart from d_model / heads), Llama4-Scout
+#: (iRoPE: windowed RoPE layers and a global NoPE layer, top-1 MoE),
+#: Phi-3-vision and MusicGen (stub frontends fed ``embeds``; MusicGen's
+#: GELU MLP and layernorm with bias)
 ARCH_NAMES = ["recurrentgemma-9b", "qwen3-1.7b", "stablelm-1.6b", "olmo-1b",
-              "falcon-mamba-7b", "granite-moe-3b-a800m"]
+              "falcon-mamba-7b", "granite-moe-3b-a800m", "mistral-nemo-12b",
+              "llama4-scout-17b-a16e", "phi-3-vision-4.2b", "musicgen-large"]
 GRANITE = "granite-moe-3b-a800m"
+LLAMA4 = "llama4-scout-17b-a16e"
 
 
 def _np_tree(tree):
@@ -79,6 +85,52 @@ def _x(shape, seed=0):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 
 
+def _inputs(cfg, B, T, seed=0):
+    """A seeded numpy batch: ``tokens`` (B, T), or for a stub-frontend arch
+    ``embeds`` (B, T, d_model) drawn from N(0, 1)."""
+    if cfg.frontend == "embed":
+        return {"embeds": _x((B, T, cfg.d_model), seed=seed)}
+    return {"tokens": _tokens(cfg.vocab, B, T, seed=seed)}
+
+
+def _ref(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _port(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _prefill_then_decode(rcfg, pcfg, rparams, pparams, B, T, max_len, steps,
+                         seed):
+    """Prefill ``B`` x ``T`` seeded inputs into caches of ``max_len``, then
+    ``steps`` decode steps fed the reference's greedy tokens (or, for a
+    stub-frontend arch, seeded embeds); the logits, the aux loss and the
+    cache are held against the reference's after each call, the port's
+    cache updated in place."""
+    batch = _inputs(rcfg, B, T, seed=seed)
+    rl, rcache, raux = RM.prefill(rcfg, rparams, _ref(batch),
+                                  max_cache_len=max_len)
+    pl, pcache, paux = M.prefill(pcfg, pparams, _port(batch),
+                                 max_cache_len=max_len)
+    _assert_close(pl, rl)
+    _assert_close(paux, raux)
+    _assert_tree_close(pcache, _np_tree(rcache))
+    for step in range(steps):
+        if rcfg.frontend == "embed":
+            feed = {"embeds": _x((B, 1, rcfg.d_model), seed=seed + 1 + step)}
+        else:
+            feed = {"tokens": np.asarray(jnp.argmax(rl[:, -1], axis=-1))
+                    .astype(np.int32)[:, None]}
+        feed["positions"] = np.full((B, 1), T + step, np.int32)
+        rl, rcache, raux = RM.decode_step(rcfg, rparams, _ref(feed), rcache)
+        pl, same, paux = M.decode_step(pcfg, pparams, _port(feed), pcache)
+        assert same is pcache  # updated in place
+        _assert_close(pl, rl)
+        _assert_close(paux, raux)
+        _assert_tree_close(pcache, _np_tree(rcache))
+
+
 # ---------------------------------------------------------------------------
 # whole model
 # ---------------------------------------------------------------------------
@@ -87,9 +139,9 @@ def test_forward_logits_match(pair):
     """Logits and the aux loss (the MoE blocks' load-balance losses summed;
     0 without MoE)."""
     rcfg, pcfg, rparams, pparams = pair
-    toks = _tokens(rcfg.vocab, 2, 12)
-    want, _, want_aux = RM.forward(rcfg, rparams, {"tokens": jnp.asarray(toks)})
-    got, cache, aux = M.forward(pcfg, pparams, {"tokens": torch.from_numpy(toks)})
+    batch = _inputs(rcfg, 2, 12)
+    want, _, want_aux = RM.forward(rcfg, rparams, _ref(batch))
+    got, cache, aux = M.forward(pcfg, pparams, _port(batch))
     assert cache is None and aux.dtype == torch.float32 and aux.dim() == 0
     _assert_close(aux, want_aux)
     assert (float(aux) > 0.0) == (pcfg.n_experts > 0)
@@ -100,41 +152,31 @@ def test_forward_logits_match(pair):
 def test_prefill_then_decode_match(pair):
     """Prefill logits and cache, then three decode steps (logits and the
     cache after each) from the port's own caches."""
-    rcfg, pcfg, rparams, pparams = pair
-    B, T, max_len = 2, 10, 24
-    toks = _tokens(rcfg.vocab, B, T, seed=1)
-    rl, rcache, raux = RM.prefill(rcfg, rparams, {"tokens": jnp.asarray(toks)},
-                                  max_cache_len=max_len)
-    pl, pcache, paux = M.prefill(pcfg, pparams, {"tokens": torch.from_numpy(toks)},
-                                 max_cache_len=max_len)
-    _assert_close(pl, rl)
-    _assert_close(paux, raux)
-    _assert_tree_close(pcache, _np_tree(rcache))
-    nxt = np.asarray(jnp.argmax(rl[:, -1], axis=-1)).astype(np.int32)[:, None]
-    for step in range(3):
-        pos = np.full((B, 1), T + step, np.int32)
-        rl, rcache, raux = RM.decode_step(
-            rcfg, rparams, {"tokens": jnp.asarray(nxt), "positions": jnp.asarray(pos)},
-            rcache)
-        pl, same, paux = M.decode_step(
-            pcfg, pparams, {"tokens": torch.from_numpy(nxt),
-                            "positions": torch.from_numpy(pos)}, pcache)
-        assert same is pcache  # updated in place
-        _assert_close(pl, rl)
-        _assert_close(paux, raux)
-        _assert_tree_close(pcache, _np_tree(rcache))
-        nxt = np.asarray(jnp.argmax(rl[:, -1], axis=-1)).astype(np.int32)[:, None]
+    _prefill_then_decode(*pair, B=2, T=10, max_len=24, steps=3, seed=1)
+
+
+def test_llama4_prefill_then_decode_crosses_the_window():
+    """Llama4-Scout's reduced config keeps a 32-token window on its RoPE
+    layers (the global NoPE layer has none): a 40-token prefill and six
+    decode steps run past it, in the prefill's masks and in the decode
+    step's masking of the cache."""
+    rcfg, pcfg = REF_ARCHS[LLAMA4].reduced(), ARCHS[LLAMA4].reduced()
+    assert [b.window for b in pcfg.pattern] == [32, 32, 32, None]
+    assert [b.rope for b in pcfg.pattern] == [True, True, True, False]
+    rparams = RM.init(rcfg, jax.random.PRNGKey(0))
+    pparams = lm_params_from_numpy(pcfg, _np_tree(rparams), device=CPU)
+    _prefill_then_decode(rcfg, pcfg, rparams, pparams, B=2, T=40, max_len=56,
+                         steps=6, seed=4)
 
 
 def test_last_only_is_the_last_row(pair):
     rcfg, pcfg, rparams, pparams = pair
-    toks = _tokens(rcfg.vocab, 1, 9, seed=2)
-    full, _, _ = M.prefill(pcfg, pparams, {"tokens": torch.from_numpy(toks)},
-                           max_cache_len=16)
-    last, _, _ = M.prefill(pcfg, pparams, {"tokens": torch.from_numpy(toks)},
-                           max_cache_len=16, last_only=True)
-    want, _, _ = RM.prefill(rcfg, rparams, {"tokens": jnp.asarray(toks)},
-                            max_cache_len=16, last_only=True)
+    batch = _inputs(rcfg, 1, 9, seed=2)
+    full, _, _ = M.prefill(pcfg, pparams, _port(batch), max_cache_len=16)
+    last, _, _ = M.prefill(pcfg, pparams, _port(batch), max_cache_len=16,
+                           last_only=True)
+    want, _, _ = RM.prefill(rcfg, rparams, _ref(batch), max_cache_len=16,
+                            last_only=True)
     assert tuple(last.shape) == (1, 1, rcfg.vocab)
     torch.testing.assert_close(last[:, 0], full[:, -1], atol=1e-5, rtol=1e-5)
     _assert_close(last, want)

@@ -8,7 +8,8 @@
   state stacked over groups) both the reference engine's tokens and those
   of greedy re-running of the port's own ``forward``.
 * On the reduced Granite-MoE it gives exactly the reference engine's
-  tokens.  Expert capacity couples the tokens routed together, so a
+  tokens, and so on the reduced OLMo, StableLM, Mistral-NeMo and
+  Llama4-Scout (a prompt past its 32-token window).  Expert capacity couples the tokens routed together, so a
   decode step (every slot's token routed at once, empty slots' included)
   differs by design from re-running ``forward`` on the whole sequence:
   the reference engine, which has no tail to lose, is the oracle.
@@ -135,6 +136,38 @@ def test_qwen3_engine_matches_reference_engine(qwen):
     assert [r.rid for r in port_done] == [r.rid for r in ref_done]
     for a, b in zip(ref_reqs, port_reqs):
         assert b.output == a.output and b.ttft_steps == a.ttft_steps
+    assert port.step_count == ref.step_count
+
+
+@pytest.mark.parametrize("name,lengths", [
+    ("olmo-1b", (5, 9, 3, 7)), ("stablelm-1.6b", (5, 9, 3, 7)),
+    ("mistral-nemo-12b", (5, 9, 3, 7)),
+    # one prompt past the reduced 32-token window of the RoPE layers
+    ("llama4-scout-17b-a16e", (35, 9, 3, 7))])
+def test_token_in_engine_matches_reference_engine(name, lengths):
+    """The token-in archs that serve on the card beside qwen3: tokens, time
+    to first token and step count equal the reference engine's, at 2
+    slots.  Llama4-Scout's top-1 MoE routes every slot's token in a decode
+    step together, as the reference's does."""
+    rcfg, pcfg, rparams, pparams = _pair(name)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, rcfg.vocab, size=n).astype(np.int32)
+               for n in lengths]
+    ref = RefServeEngine(rcfg, rparams, RefServeConfig(slots=2, max_len=48))
+    port = ServeEngine(pcfg, pparams, ServeConfig(slots=2, max_len=48),
+                       device=CPU)
+    ref_reqs = [RefRequest(rid=i, prompt=p, max_new_tokens=3 + i)
+                for i, p in enumerate(prompts)]
+    port_reqs = [Request(rid=i, prompt=p, max_new_tokens=3 + i)
+                 for i, p in enumerate(prompts)]
+    for r in ref_reqs:
+        ref.submit(r)
+    for r in port_reqs:
+        port.submit(r)
+    ref_done, port_done = ref.run(), port.run()
+    assert [r.rid for r in port_done] == [r.rid for r in ref_done]
+    for a, b in zip(ref_reqs, port_reqs):
+        assert b.output == a.output and b.ttft_steps == a.ttft_steps, b.rid
     assert port.step_count == ref.step_count
 
 
