@@ -239,13 +239,18 @@ Phases:
     finite, its last two losses below the first run's first, no kernel
     launched.
 
-18. The six model families no earlier phase runs, each at full width
+18. First (18w) bf16 ``flash_attention`` at head widths off the 64-column
+    grid (``FLASH_WIDTH_CASES``): Dh 40, 80, 96 and 192 must resolve the
+    ``wgmma`` kernel and Dh 36 the CUDA-core one, one launch each, held to
+    the plain version at ``KERNEL_TOL`` with causal and windowed masks,
+    ``q_offset``s, GQA and T and S off the tiles.  Then the six model
+    families no earlier phase runs, each at full width
     (``CARD_ARCHS``), the card's memory freed between them: 18a OLMo-1B
     (non-parametric LayerNorm, tied embeddings, Dh 128), 18b StableLM-1.6B
     (LayerNorm with bias, Dh 64), 18c Mistral-NeMo-12B (GQA 32:8, Dh 128),
     18d Llama4-Scout-17B-A16E at depth 8 (two iRoPE groups: windowed RoPE
     layers at 8192 and a global NoPE layer; a top-1 MoE over 16 experts),
-    18e Phi-3-vision-4.2B (Dh 96, the bf16 CUDA-core kernel) and 18f
+    18e Phi-3-vision-4.2B (Dh 96, ``wgmma`` padded to 128) and 18f
     MusicGen-large (GELU MLP; both take stub-frontend ``embeds``).  Each
     is served in bfloat16 with the kernels: the token-in archs through
     ``ServeEngine`` as phase 9 (4 slots, prompts of 1, 17, 2048 and 3000
@@ -254,8 +259,8 @@ Phases:
     of 3000 seeded embeds and 32 ``model.decode_step`` calls.  Tokens in
     the vocabulary, finite logits, ``flash_attention`` (and Llama4's
     ``moe_dispatch``) launches exact per admission and per step, every
-    launch resolving the expected C entry (``flash_attention_bf16`` at Dh
-    96, ``flash_attention_bf16_wgmma`` otherwise), init and serving peaks
+    launch resolving the expected C entry (``flash_attention_bf16_wgmma``
+    at every served width, Dh 96 included), init and serving peaks
     under 80 GB.  Then ``flash_attention`` at each arch's prefill shape in
     both dtypes (Llama4-Scout with and without its window) and
     ``moe_dispatch`` at Llama4-Scout's, against their plain versions and
@@ -634,12 +639,29 @@ def _dh(mangled: str) -> str:
     return m.group(1) if m else "?"
 
 
+def _template_ints(mangled: str) -> tuple:
+    """The integer template arguments of a mangled name, in order."""
+    import re
+
+    return tuple(int(x) for x in re.findall(r"Li(\d+)E", mangled))
+
+
+def _instance(mangled: str) -> str:
+    """A flash_attention instantiation's label: its head width, and for the
+    bf16 ``wgmma`` kernel (padded width, k-steps) also the k-steps of
+    Q Kᵀ ("Dh 128, 6 k-steps": Dh 81 to 96)."""
+    ints = _template_ints(mangled)
+    label = f"Dh {ints[0]}" if ints else "Dh ?"
+    return label + (f", {ints[1]} k-steps" if len(ints) > 1 else "")
+
+
 def check_flash_build(so: Path):
     """Registers and spills of the tensor-core instantiations, bf16
-    (``wgmma``) and float32 (split-TF32 ``mma.sync``), and their
-    tensor-core (HGMMA, HMMA) and TMA (UTMALDG) instructions; fails if a
-    bf16 kernel has no HGMMA or a float32 one no HMMA.  Returns what it
-    read, by kernel and head width."""
+    (``wgmma``, one per padded width and k-steps of Q Kᵀ) and float32
+    (split-TF32 ``mma.sync``), and their tensor-core (HGMMA, HMMA) and TMA
+    (UTMALDG) instructions; fails if a bf16 kernel has no HGMMA or a
+    float32 one no HMMA.  Returns what it read, by kernel and
+    instantiation."""
     from repro_torch.kernels import _build
 
     log = ptxas_usage(_build.build_log("flash_attention"))
@@ -653,22 +675,22 @@ def check_flash_build(so: Path):
         check(usage, f"the build log lists no {kernel} instantiation")
         found[kernel] = {}
         for fn, (regs, st, ld) in sorted(usage.items(),
-                                         key=lambda kv: int(_dh(kv[0]))):
-            found[kernel][_dh(fn)] = {"registers": regs,
-                                      "spill_store_bytes": st,
-                                      "spill_load_bytes": ld}
-            print(f"{kernel}<Dh {_dh(fn)}>: {regs} registers, spill stores "
+                                         key=lambda kv: _template_ints(kv[0])):
+            found[kernel][_instance(fn)] = {"registers": regs,
+                                            "spill_store_bytes": st,
+                                            "spill_load_bytes": ld}
+            print(f"{kernel}<{_instance(fn)}>: {regs} registers, spill stores "
                   f"{st} B, spill loads {ld} B")
         if counts is None:
             continue
         sass = {fn: c for fn, c in counts.items() if kernel in fn}
         check(sass, f"the SASS of {so.name} has no {kernel} function")
-        for fn, c in sorted(sass.items(), key=lambda kv: int(_dh(kv[0]))):
-            print(f"{kernel}<Dh {_dh(fn)}> SASS: {c['HGMMA']} HGMMA, "
+        for fn, c in sorted(sass.items(), key=lambda kv: _template_ints(kv[0])):
+            print(f"{kernel}<{_instance(fn)}> SASS: {c['HGMMA']} HGMMA, "
                   f"{c['HMMA']} HMMA, {c['UTMALDG']} UTMALDG")
-            check(c[op] > 0, f"{kernel}<Dh {_dh(fn)}> has no {op} instruction: "
-                  "it does not run on the tensor cores")
-            found[kernel].setdefault(_dh(fn), {}).update(c)
+            check(c[op] > 0, f"{kernel}<{_instance(fn)}> has no {op} "
+                  "instruction: it does not run on the tensor cores")
+            found[kernel].setdefault(_instance(fn), {}).update(c)
     if counts is not None:
         core = sum(c["HGMMA"] + c["HMMA"] for fn, c in counts.items()
                    if FLASH_WGMMA not in fn and FLASH_F32 not in fn)
@@ -1346,8 +1368,9 @@ def flash_bound_ms(q, k, causal, window, q_offset):
 def cuda_core_attention(q, k, v, causal=True, window=None, q_offset=0):
     """Attention on the CUDA-core kernel, in q's dtype, its C entry called
     directly, so no launch is counted: the kernel that served the bf16
-    widths before the ``wgmma`` kernel and float32 before the split-TF32
-    one (no path of the port reaches its float32 entry)."""
+    widths before the ``wgmma`` kernel (Phi-3's 96 among them; it keeps
+    the widths that are no multiple of 8) and float32 before the
+    split-TF32 one (no path of the port reaches its float32 entry)."""
     import torch
     from repro_torch.kernels.flash_attention import _kernel
 
@@ -5337,6 +5360,69 @@ def phase_arch_attention(device, cfg, t_len, phase, seed=6):
     return worst, timed
 
 
+#: (B, Hq, Hkv, T, S, Dh, causal, window, q_offset) of the bf16 width
+#: check: Dh 40, 80, 96 and 192 on the ``wgmma`` kernel, padded to 64,
+#: 128, 128 and 256 (192's last box wholly past Dh), and Dh 36, off TMA's
+#: 16-byte rows, on the CUDA cores; T and S no multiple of a tile, GQA and
+#: MQA, windows, ``q_offset``s, two batch rows, one case not causal
+FLASH_WIDTH_CASES = (
+    (2, 8, 2, 200, 200, 40, True, None, 0),
+    (1, 12, 4, 333, 1333, 80, True, 512, 1000),
+    (1, 32, 32, 700, 700, 96, True, None, 0),
+    (2, 8, 8, 150, 277, 96, True, 64, 127),
+    (1, 4, 2, 77, 190, 96, False, None, 0),
+    (1, 8, 1, 257, 257, 192, True, 100, 0),
+    (1, 8, 2, 130, 300, 36, True, None, 170),
+)
+
+
+def phase_flash_widths(device, cases=FLASH_WIDTH_CASES, phase="18w"):
+    """bf16 ``flash_attention`` at head widths off the 64-column grid: each
+    case's launch resolves the entry the rule names (``wgmma`` at Dh % 8 ==
+    0, the CUDA-core kernel otherwise), launches once, and is held to the
+    plain version at ``KERNEL_TOL``.  Returns {Dh: max |err|}."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    print(f"== phase {phase}: bf16 flash_attention at Dh "
+          f"{sorted({c[5] for c in cases})} against its plain version",
+          flush=True)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    atol, rtol = KERNEL_TOL[str(torch.bfloat16)]
+    errs = {}
+    for b, hq, hkv, t_len, s_len, dh, causal, window, q_offset in cases:
+        q, k, v = (torch.randn((b, h, n, dh), generator=gen)
+                   .to(device, torch.bfloat16)
+                   for h, n in ((hq, t_len), (hkv, s_len), (hkv, s_len)))
+        want_entry = ("flash_attention_bf16_wgmma" if dh % 8 == 0
+                      else "flash_attention_bf16")
+        entries, restore = _entry_recorder()
+        before = flash_attention.launches
+        try:
+            got = flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
+            _sync(device)
+        finally:
+            restore()
+        launched = flash_attention.launches - before
+        want = attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+        ok, err = _close(got, want, atol, rtol)
+        label = (f"({b},{hq},{t_len},{dh}) Hkv {hkv} S {s_len} causal {causal}"
+                 f" window {window} q_offset {q_offset}")
+        check(entries == [want_entry] and launched == 1,
+              f"flash_attention {label}: resolved {entries} in {launched} "
+              f"launches, wanted {want_entry} once")
+        check(ok and err == err and got.dtype == q.dtype,
+              f"flash_attention {label} bf16: max |err| {err} over atol "
+              f"{atol} rtol {rtol}")
+        errs[dh] = max(errs.get(dh, 0.0), err)
+        print(f"flash_attention {label} bf16 -> {want_entry}: max |err| "
+              f"{err!r} (atol {atol}, rtol {rtol})")
+    return errs
+
+
 def phase_card_arch(device, spec, reduced=False, seen_shapes=None):
     """Phase 18 for one arch (``spec``): serving with the kernels, the
     kernels at its shapes against their plain versions (``flash_attention``
@@ -5389,7 +5475,7 @@ def phase_card_arch(device, spec, reduced=False, seen_shapes=None):
     print(f"{spec.arch}: every flash_attention launch ({len(entries)}, "
           f"{launched['flash_attention']} while counted) took {want} at Dh "
           f"{cfg.head_dim_}")
-    out["launches"] = launched
+    out["launches"], out["entry"] = launched, want
     free_device_memory(device)
 
     # the kernels at the served shapes, against their plain versions
@@ -5528,6 +5614,7 @@ def main() -> None:
     free_device_memory(device)
     example_launches, example_err = phase_examples(device)
     free_device_memory(device)
+    widths = phase_flash_widths(device)
     card = phase_card_archs(device)
     moe["launches_by_path"]["expert parallel (14b)"] = ep_launches["moe_dispatch"]
     moe["launches"] += ep_launches["moe_dispatch"]
@@ -5548,6 +5635,8 @@ def main() -> None:
     flash["max_abs_err"] = max(flash["max_abs_err"], flash_granite["max_abs_err"],
                                example_err)
     flash["granite_prefill"] = flash_granite
+    flash["bf16_widths_max_abs_err"] = widths
+    flash["max_abs_err"] = max(flash["max_abs_err"], *widths.values())
     flash["tensor_core_build"] = flash_build
     for e in entries:
         if e["name"] in tp_launches:

@@ -18,7 +18,9 @@ production meshes, held to the card, ``16`` the tensor-parallel layout on
 two processes sharing the card, ``17`` the port's examples, ``18`` the six model families no other phase
 runs (``18a`` OLMo-1B, ``18b`` StableLM-1.6B, ``18c`` Mistral-NeMo-12B,
 ``18d`` Llama4-Scout at depth 8, ``18e`` Phi-3-vision, ``18f``
-MusicGen-large, each alone), after phase 1 (the card's name and
+MusicGen-large, each alone), ``18w`` bf16 ``flash_attention`` at head
+widths off the 64-column grid (which the whole script runs before 18a),
+after phase 1 (the card's name and
 power limit, and the kernels built).  Phases 6a, 8a and 10a run on
 stand-in launch counts (they print their kernels-line entries).  Needs a
 CUDA card.
@@ -33,7 +35,7 @@ ap = argparse.ArgumentParser()
 ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
 ap.add_argument("phases", nargs="+", choices=[
     "5", "6a", "7", "8a", "10a", "10b", "14", "15", "16", "17", "18",
-    "18a", "18b", "18c", "18d", "18e", "18f"])
+    "18w", "18a", "18b", "18c", "18d", "18e", "18f"])
 args = ap.parse_args()
 tree = Path(args.tree).resolve()
 sys.path[:0] = [str(tree), str(tree / "src")]
@@ -74,6 +76,8 @@ for phase in args.phases:
         print(json.dumps(C.phase_examples(device)))
     elif phase == "18":
         print(json.dumps(C.phase_card_archs(device), default=str))
+    elif phase == "18w":
+        print(json.dumps(C.phase_flash_widths(device)))
     elif phase.startswith("18"):
         spec = next(s for s in C.CARD_ARCHS if s.phase == phase)
         print(json.dumps(C.phase_card_arch(device, spec), default=str))

@@ -48,35 +48,44 @@
 //   32, 64, 128 or 256.  What bounds it is the split: the integer and
 //   float instructions that make and feed the fragments outnumber the mma
 //   several to one (see the tile constants below).
-// * flash_attention_kernel_wgmma: bfloat16 with Dh 64, 128 or 256 (both
-//   served widths).  A block of two warpgroups owns 128 query rows, 64 each.
-//   Q, K and V reach shared memory by TMA as 64-column (128-byte) boxes in
-//   the 128-byte swizzle, through 3-D tensor maps over (Dh, rows, batch x
-//   heads): rows past T or S are zero-filled, never read from the next head
-//   or batch row.  K and V tiles go through a two-stage ring guarded by
-//   mbarriers that count the transaction bytes; one thread issues tile j+1
-//   before tile j is computed.  S = Q K^T is one wgmma chain with both
-//   operands K-major in shared memory.  P = exp(S - m), rounded to bf16
-//   straight from S's accumulator fragment (which is wgmma's A-register
-//   layout), multiplies V as the B operand read MN-major through wgmma's
-//   transpose bit, so V is never transposed by hand.  S, m, l and O stay in
-//   float32 registers.  The element mask runs only on the tiles that
-//   straddle a causal, window or S edge.  Unlike the TPU kernel, P enters
-//   the second product in bf16.
-// * flash_attention_kernel: bfloat16 at the other widths.  One block per
-//   (batch, head, 64 rows) over 32-row kv tiles, both products on the CUDA
-//   cores in float32 (bf16 widened on load), the head zero-padded to 16,
-//   32, 64, 128 or 256.  Its float32 instantiation served float32 before
-//   the split-TF32 kernel; it stays callable through flash_attention_f32
-//   only as the yardstick chip_smoke.py times, and no path of the port
-//   reaches it.
+// * flash_attention_kernel_wgmma: bfloat16 at every Dh that is a multiple
+//   of 8 (all served widths: 64, 96, 128, 256).  A block of two warpgroups
+//   owns 128 query rows, 64 each.  Q, K and V reach shared memory by TMA as
+//   64-column (128-byte) boxes in the 128-byte swizzle, through 3-D tensor
+//   maps over (dh, rows, batch x heads): rows past T or S and columns past
+//   dh are zero-filled, never read from the next row, head or batch row.
+//   The instantiation's width DH is the least of 64, 128 and 256 that holds
+//   dh (Phi-3's 96 runs at 128), and its second parameter KS = ceil(dh/16)
+//   is the number of 16-column k-steps of S = Q K^T, so the zero columns
+//   cost that product nothing past the last 16 (6 of 8 at Dh 96).  TMA
+//   needs 16-byte row strides, hence dh % 8 == 0.  K and V tiles go
+//   through a two-stage ring guarded by mbarriers that count the
+//   transaction bytes of whole boxes, zero-filled parts included; one
+//   thread issues tile j+1 before tile j is computed.  S = Q K^T is one
+//   wgmma chain with both operands K-major in shared memory.  P = exp(S -
+//   m), rounded to bf16 straight from S's accumulator fragment (which is
+//   wgmma's A-register layout), multiplies V as the B operand read MN-major
+//   through wgmma's transpose bit, so V is never transposed by hand; that
+//   product keeps N = DH (V's zero columns make zero columns of O, never
+//   stored): a native N = 96 would need V's second box in the 64-byte
+//   swizzle.  S, m, l and O stay in float32 registers.  The element mask
+//   runs only on the tiles that straddle a causal, window or S edge.
+//   Unlike the TPU kernel, P enters the second product in bf16.
+// * flash_attention_kernel: bfloat16 at the widths TMA cannot take (dh %
+//   8 != 0).  One block per (batch, head, 64 rows) over 32-row kv tiles,
+//   both products on the CUDA cores in float32 (bf16 widened on load), the
+//   head zero-padded to 16, 32, 64, 128 or 256.  Its float32 instantiation
+//   served float32 before the split-TF32 kernel; it stays callable through
+//   flash_attention_f32 only as the yardstick chip_smoke.py times, and no
+//   path of the port reaches it.
 //
 // Layout: q (B, Hq, T, Dh), k and v (B, Hkv, S, Dh), out (B, Hq, T, Dh),
 // all contiguous; query head h reads kv head h / (Hq / Hkv).  Query t sits
 // at position t + q_offset and sees key s when s < kv_len, s <= t + q_offset
 // (causal) and s > t + q_offset - window (window > 0).  A row that sees no
 // key gives 0, as the reference's does.  The wgmma entry also needs q, k, v
-// and out 16-byte aligned (TMA's rule); the wrapper checks it.
+// and out 16-byte aligned and dh % 8 == 0 (TMA's rules); the wrapper
+// checks the first, the entry refuses any other dh.
 //
 // Plain C entry points, loaded with ctypes by
 // repro_torch/kernels/flash_attention.py.  Each returns a cudaError_t: that
@@ -96,7 +105,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// CUDA cores: bfloat16 at widths other than 64, 128 and 256 (and float32,
+// CUDA cores: bfloat16 at widths that are no multiple of 8 (and float32,
 // the yardstick)
 // ---------------------------------------------------------------------------
 
@@ -350,7 +359,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t b,
 
 
 // ---------------------------------------------------------------------------
-// Tensor cores: bfloat16 at Dh 64, 128 and 256 (wgmma fed by TMA)
+// Tensor cores: bfloat16 at every Dh % 8 == 0 (wgmma fed by TMA)
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 64;    // query rows per warpgroup (wgmma's M)
@@ -359,6 +368,7 @@ constexpr int kWgThreads = 256;
 constexpr int kBox = 64;       // bf16 columns per 128-byte swizzled box
 constexpr int kStages = 2;     // K/V ring depth
 
+// DH: the padded head width, 64, 128 or 256 (whole boxes)
 template <int DH>
 struct WgTile {
   // kv rows per tile: 64 keeps Dh 256's O (128 floats a thread) and Dh 64's
@@ -619,15 +629,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 
 // Accumulator fragment of a 64 x N wgmma, thread t of its warpgroup: rows
 // 16 (t / 32) + (t % 32) / 4 + 8 r, columns 8 i + 2 (t % 4) + c, in
-// register 4 i + 2 r + c (r, c in {0, 1}).
-template <int DH>
+// register 4 i + 2 r + c (r, c in {0, 1}).  DH is the padded width, KS =
+// ceil(dh / 16) the k-steps of S = Q K^T; dh is the true width (a multiple
+// of 8 in (16 (KS - 1), 16 KS]), the output's row stride.
+template <int DH, int KS>
 __global__ void __launch_bounds__(kWgThreads, WgTile<DH>::min_blocks)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
                              __nv_bfloat16* __restrict__ out, int hq, int hkv,
-                             int t_len, int s_len, int causal, int window,
-                             int q_offset, float scale_log2) {
+                             int t_len, int s_len, int dh, int causal,
+                             int window, int q_offset, float scale_log2) {
+  static_assert(KS >= 1 && KS <= DH / 16 && (DH == 64 || KS > DH / 32),
+                "KS k-steps must need the DH instantiation");
   using W = WgTile<DH>;
   constexpr int BK = W::BK;
   extern __shared__ unsigned char smem_raw[];
@@ -709,13 +723,14 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       const uint32_t v_s = k_s + W::kv_bytes;
       mbar_wait(kv_bar + 8 * st, (j / kStages) & 1);
 
-      // S = Q K^T: 16 columns of Dh per wgmma; inside a 128-byte box the
-      // k-th 16 columns start 32 k bytes in (the swizzle is applied by the
-      // hardware on the absolute address)
+      // S = Q K^T: 16 columns of Dh per wgmma, up to the last 16 that hold
+      // a column below dh; inside a 128-byte box the k-th 16 columns start
+      // 32 k bytes in (the swizzle is applied by the hardware on the
+      // absolute address)
       float s[BK / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
+      for (int kk = 0; kk < KS; ++kk) {
         const uint32_t off = (kk % 4) * 32;
         wgmma_ss(s,
                  sw128_desc(q_wg + (kk / 4) * kWgBQ * 128 + off, 16),
@@ -768,8 +783,10 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
             sum += e;
           }
         l[r] = l[r] * alpha + sum;
+        // O's columns from 16 KS on take P times V's zero columns: they
+        // stay 0 and are never stored, so they are not rescaled
 #pragma unroll
-        for (int i = 0; i < DH / 8; ++i) {
+        for (int i = 0; i < 2 * KS; ++i) {
           o[4 * i + 2 * r] *= alpha;
           o[4 * i + 2 * r + 1] *= alpha;
         }
@@ -808,11 +825,13 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     const int row = row0 + 8 * r;
     if (row >= t_len) continue;
     __nv_bfloat16* og =
-        out + ((static_cast<int64_t>(b) * hq + h) * t_len + row) * DH + col0;
+        out + ((static_cast<int64_t>(b) * hq + h) * t_len + row) * dh + col0;
+    // the columns below dh: whole groups of 8, as dh % 8 == 0
 #pragma unroll
-    for (int i = 0; i < DH / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(og + 8 * i) = __floats2bfloat162_rn(
-          o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+    for (int i = 0; i < 2 * KS; ++i)
+      if (8 * i < dh)
+        *reinterpret_cast<__nv_bfloat162*>(og + 8 * i) = __floats2bfloat162_rn(
+            o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
   }
 }
 
@@ -1296,34 +1315,57 @@ bool encode_map(CUtensorMap* map, const void* ptr, int64_t heads, int64_t rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+// the padded width of the instantiation that runs KS k-steps
+constexpr int wgmma_width(int ks) {
+  return ks <= 4 ? 64 : ks <= 8 ? 128 : 256;
+}
+
+template <int KS>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int64_t b, int64_t hq, int64_t hkv, int64_t t_len,
-                 int64_t s_len, int causal, int window, int q_offset,
+                 int64_t s_len, int dh, int causal, int window, int q_offset,
                  float scale, cudaStream_t stream) {
+  constexpr int DH = wgmma_width(KS);
   using W = WgTile<DH>;
   static bool smem_allowed = false;  // as in launch_dh
   if (!smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel_wgmma<DH>,
+        flash_attention_kernel_wgmma<DH, KS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(W::smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = true;
   }
+  // the true width: TMA fills the boxes' columns from dh to DH with 0
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, q, b * hq, t_len, DH, kWgBQ) ||
-      !encode_map(&k_map, k, b * hkv, s_len, DH, W::BK) ||
-      !encode_map(&v_map, v, b * hkv, s_len, DH, W::BK))
+  if (!encode_map(&q_map, q, b * hq, t_len, dh, kWgBQ) ||
+      !encode_map(&k_map, k, b * hkv, s_len, dh, W::BK) ||
+      !encode_map(&v_map, v, b * hkv, s_len, dh, W::BK))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((t_len + kWgBQ - 1) / kWgBQ),
                   static_cast<unsigned>(hq), static_cast<unsigned>(b));
-  flash_attention_kernel_wgmma<DH><<<grid, kWgThreads, W::smem, stream>>>(
+  flash_attention_kernel_wgmma<DH, KS><<<grid, kWgThreads, W::smem, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out),
       static_cast<int>(hq), static_cast<int>(hkv), static_cast<int>(t_len),
-      static_cast<int>(s_len), causal, window, q_offset,
+      static_cast<int>(s_len), dh, causal, window, q_offset,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation of ks = ceil(dh / 16) k-steps, one for each of 1 .. 16
+template <int KS = 16>
+int dispatch_wgmma(int ks, const void* q, const void* k, const void* v,
+                   void* out, int64_t b, int64_t hq, int64_t hkv,
+                   int64_t t_len, int64_t s_len, int dh, int causal,
+                   int window, int q_offset, float scale,
+                   cudaStream_t stream) {
+  if (ks == KS)
+    return launch_wgmma<KS>(q, k, v, out, b, hq, hkv, t_len, s_len, dh,
+                            causal, window, q_offset, scale, stream);
+  if constexpr (KS > 1)
+    return dispatch_wgmma<KS - 1>(ks, q, k, v, out, b, hq, hkv, t_len, s_len,
+                                  dh, causal, window, q_offset, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out,
@@ -1331,7 +1373,7 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out,
                       int64_t s_len, int64_t dh, int causal, int64_t window,
                       int64_t q_offset, float scale, void* stream) {
   if (b <= 0 || hq <= 0 || t_len <= 0) return static_cast<int>(cudaSuccess);
-  if ((dh != 64 && dh != 128 && dh != 256) || hkv <= 0 || hq % hkv != 0 ||
+  if (dh <= 0 || dh > 256 || dh % 8 != 0 || hkv <= 0 || hq % hkv != 0 ||
       s_len < 0 || s_len > INT_MAX / 2 || t_len > INT_MAX / 2 ||
       q_offset > INT_MAX / 2 || q_offset < -(INT_MAX / 2))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1341,13 +1383,9 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out,
         out, 0, static_cast<size_t>(b * hq * t_len * dh) * 2, st));
   const int win =
       window <= 0 ? 0 : static_cast<int>(window < INT_MAX / 2 ? window : INT_MAX / 2);
-#define FA_WGMMA(DHV)                                                       \
-  return launch_wgmma<DHV>(q, k, v, out, b, hq, hkv, t_len, s_len, causal,  \
-                           win, static_cast<int>(q_offset), scale, st)
-  if (dh == 64) FA_WGMMA(64);
-  if (dh == 128) FA_WGMMA(128);
-  FA_WGMMA(256);
-#undef FA_WGMMA
+  return dispatch_wgmma(static_cast<int>((dh + 15) / 16), q, k, v, out, b, hq,
+                        hkv, t_len, s_len, static_cast<int>(dh), causal, win,
+                        static_cast<int>(q_offset), scale, st);
 }
 
 }  // namespace

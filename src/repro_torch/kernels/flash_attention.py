@@ -1,5 +1,7 @@
-"""Forward flash attention on Hopper — the prefill attention of
-RecurrentGemma (local, MQA, Dh 256) and Granite-MoE (causal GQA, Dh 64).
+"""Forward flash attention on Hopper — the prefill attention of every
+served LM: RecurrentGemma (local, MQA, Dh 256), Granite-MoE and StableLM
+(Dh 64), OLMo, Mistral-NeMo and Llama4-Scout (Dh 128), Phi-3-vision
+(Dh 96).
 
 Replaces the TPU kernel :func:`repro.kernels.flash_attention._attn_kernel`
 (blockwise online softmax with the running max, normaliser and accumulator
@@ -15,11 +17,13 @@ is a rule of (dtype, Dh), :func:`_entry`:
   summed in float32 (``hi·hi' + hi·lo' + lo·hi'``), which keeps float32
   accuracy; K and V through a two-stage ``cp.async`` ring, the online
   softmax in float32 registers.
-* bfloat16 with Dh 64, 128 or 256 (:data:`WGMMA_HEAD_DIMS`, the served
-  widths among them): both products on the tensor cores with ``wgmma``,
-  Q, K and V fed by TMA, the online softmax in float32 registers, P
-  rounded to bf16 for the second product.  q, k and v must be 16-byte
-  aligned (TMA's rule).
+* bfloat16 at any Dh <= 256 that is a multiple of 8 (every served width):
+  both products on the tensor cores with ``wgmma``, Q, K and V fed by TMA
+  in 64-column boxes whose columns past Dh TMA fills with zeros (the head
+  padded to 64, 128 or 256; Q Kᵀ runs ``ceil(Dh / 16)`` k-steps), the
+  online softmax in float32 registers, P rounded to bf16 for the second
+  product.  TMA needs 16-byte rows (hence Dh % 8 == 0) and q, k and v
+  16-byte aligned.
 * bfloat16 at any other Dh <= 256: the CUDA-core kernel, both products
   in float32.
 
@@ -42,9 +46,6 @@ __all__ = ["flash_attention"]
 
 #: widest head either kernel takes (their largest instantiation)
 MAX_HEAD_DIM = 256
-#: bf16 head widths of the tensor-core kernel: whole 64-column (128-byte)
-#: TMA boxes, one instantiation each
-WGMMA_HEAD_DIMS = (64, 128, 256)
 
 
 def _entry(dtype: torch.dtype, dh: int) -> str:
@@ -57,7 +58,7 @@ def _entry(dtype: torch.dtype, dh: int) -> str:
         raise ValueError(f"flash_attention: head dim {dh} > {MAX_HEAD_DIM}")
     if dtype == torch.float32:
         return "flash_attention_f32_tc"
-    if dh in WGMMA_HEAD_DIMS:
+    if dh % 8 == 0:  # 16-byte rows, as TMA needs
         return "flash_attention_bf16_wgmma"
     return "flash_attention_bf16"
 

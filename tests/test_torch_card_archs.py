@@ -101,6 +101,19 @@ def test_phase_18_rehearses_on_the_cpu(rehearsal, index):
         cfg.n_layers * (admissions + steps) if cfg.n_experts else 0)
     assert out["flash_err"] == 0.0  # the plain version against itself
     assert ("moe" in out) == bool(cfg.n_experts)
+    # every bf16 launch resolved the tensor-core kernel (the reduced
+    # widths, as the full ones, are multiples of 8)
+    assert out["entry"] == "flash_attention_bf16_wgmma"
+
+
+def test_phase_18_served_widths_take_the_tensor_core_kernel(C):
+    """At full width every family of phase 18 serves bf16 attention on the
+    ``wgmma`` kernel, which phase 18 checks of each launch: Phi-3-vision's
+    Dh 96 (padded to 128) as the others' 64 and 128."""
+    widths = {s.arch: get_config(s.arch).head_dim_ for s in C.CARD_ARCHS}
+    assert widths["phi-3-vision-4.2b"] == 96
+    assert {a: FA._entry(torch.bfloat16, dh) for a, dh in widths.items()} == \
+        dict.fromkeys(widths, "flash_attention_bf16_wgmma")
 
 
 #: the full-width parameter counts phase 18 states, in billions, at the
@@ -183,3 +196,28 @@ def test_moe_cut_pins_routing_after_a_flip(rehearsal, monkeypatch, capsys):
     for label in ("prefill", "decode step 1", "decode step 2", "decode step 3"):
         assert (f"{label} logits" in out and "(with the plain run's routing "
                 "pinned): kernels vs plain max |err| 0.0 " in out)
+
+
+def test_phase_18w_rehearses_on_the_cpu(C, monkeypatch):
+    """The width check of phase 18 on the CPU, its wrapper a plain version
+    that resolves the C entry and counts a launch as the kernel's does:
+    every case passes, Dh 40, 80, 96 and 192 on the ``wgmma`` entry and Dh
+    36 on the CUDA-core one, and the plain version against itself is
+    exact."""
+    resolved = []
+
+    def attention(q, k, v, causal=True, window=None, q_offset=0):
+        resolved.append((q.shape[-1], FA._entry(q.dtype, q.shape[-1])))
+        attention.launches += 1
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+
+    attention.launches = 0
+    monkeypatch.setattr(FA, "flash_attention", attention)
+    errs = C.phase_flash_widths(CPU)
+    assert errs == {40: 0.0, 80: 0.0, 96: 0.0, 192: 0.0, 36: 0.0}
+    assert attention.launches == len(C.FLASH_WIDTH_CASES) == len(resolved)
+    assert {dh: e for dh, e in resolved} == {
+        40: "flash_attention_bf16_wgmma", 80: "flash_attention_bf16_wgmma",
+        96: "flash_attention_bf16_wgmma", 192: "flash_attention_bf16_wgmma",
+        36: "flash_attention_bf16"}

@@ -199,7 +199,8 @@ def test_segment_sum_out_of_range_ids_break_runs(card, d):
 
 # (B, Hq, Hkv, T, S, Dh, causal, window, q_offset): the reference kernel
 # tests' table, then RecurrentGemma's shapes (MQA, Dh 256, window) with a
-# ragged last tile, and a prompt shorter than one tile
+# ragged last tile, a prompt shorter than one tile, and Dh 36, which bf16
+# serves on the CUDA-core kernel (its rows are no whole 16 bytes)
 ATTN_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, 0),
     (1, 8, 8, 100, 100, 32, True, None, 0),
@@ -211,14 +212,18 @@ ATTN_CASES = [
     (1, 16, 1, 17, 17, 256, True, 2048, 0),
     (2, 4, 1, 33, 33, 16, True, 32, 0),
     (1, 4, 1, 8, 40, 80, True, 16, 32),
+    (1, 4, 2, 70, 90, 36, True, None, 20),
 ]
-# the two served bf16 shapes at reduced T, T and S no multiple of any tile
-# (Granite: GQA 24/8, Dh 64, causal; RecurrentGemma: MQA, Dh 256, window),
-# and a decode-like offset with S > T at Dh 256 with a window
+# served bf16 shapes at reduced T, T and S no multiple of any tile
+# (Granite: GQA 24/8, Dh 64, causal; RecurrentGemma: MQA, Dh 256, window;
+# Phi-3-vision: 32 kv heads, Dh 96, padded to 128), a decode-like offset
+# with S > T at Dh 256 with a window, and a GQA Dh 80 with an offset
 SERVED_ATTN_CASES = [
     (1, 24, 8, 520, 520, 64, True, None, 0),
     (1, 16, 1, 700, 700, 256, True, 256, 0),
     (1, 4, 1, 100, 1300, 256, True, 256, 1200),
+    (1, 32, 32, 700, 700, 96, True, None, 0),
+    (1, 12, 4, 333, 1333, 80, True, None, 1000),
 ]
 
 
@@ -247,13 +252,14 @@ def test_flash_attention_matches_plain_version(card, dtype, B, Hq, Hkv, T, S,
 
 @pytest.mark.parametrize("Dh,entry", [
     (64, "flash_attention_bf16_wgmma"), (128, "flash_attention_bf16_wgmma"),
-    (256, "flash_attention_bf16_wgmma"), (48, "flash_attention_bf16"),
-    (96, "flash_attention_bf16"), (200, "flash_attention_bf16"),
+    (256, "flash_attention_bf16_wgmma"), (48, "flash_attention_bf16_wgmma"),
+    (96, "flash_attention_bf16_wgmma"), (200, "flash_attention_bf16_wgmma"),
+    (36, "flash_attention_bf16"),
 ])
 def test_flash_attention_bf16_width_rule(card, Dh, entry):
     """Both sides of the head-width rule in bf16: the tensor-core kernel at
-    64, 128 and 256, the CUDA-core kernel elsewhere; both match the plain
-    version."""
+    every Dh % 8 == 0 (TMA fills the padded columns with zeros), the
+    CUDA-core kernel elsewhere; both match the plain version."""
     assert flash_entry(torch.bfloat16, Dh) == entry
     q = _normal((1, 4, 150, Dh), 0, card, "bfloat16")
     k = _normal((1, 2, 150, Dh), 1, card, "bfloat16")
@@ -312,12 +318,15 @@ def test_flash_attention_float32_one_kv_head_short_prompt(card, Dh, window):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Hq,Hkv,Dh,causal", [(4, 2, 64, True),
-                                              (4, 1, 256, False)])
+                                              (4, 1, 256, False),
+                                              (4, 2, 96, True)])
 def test_flash_attention_reads_no_keys_past_s(card, dtype, Hq, Hkv, Dh,
                                               causal):
     """S = 77 is no multiple of a kv tile, so batch row 0's last tile runs
     past its keys: those rows must be zeros, not batch row 1's, whose V is
-    inf.  Row 0's output equals the plain version's and is finite."""
+    inf; at Dh 96 the padded columns too must be TMA's zeros, not the next
+    row's first columns.  Row 0's output equals the plain version's and is
+    finite."""
     q = _normal((2, Hq, 40, Dh), 0, card, dtype)
     k = _normal((2, Hkv, 77, Dh), 1, card, dtype)
     v = _normal((2, Hkv, 77, Dh), 2, card, dtype)

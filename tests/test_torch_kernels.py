@@ -111,12 +111,15 @@ KTOL = {"float32": dict(atol=2e-5, rtol=1e-2),
 # (B, Hq, Hkv, T, S, Dh, causal, window, q_offset): rows of the reference
 # kernel tests' table at sizes interpret mode runs quickly — GQA, a sliding
 # window over a T that is no multiple of the 32-row block, a decode offset,
-# non-causal
+# non-causal — and Phi-3-vision's Dh 96 (as many kv heads as query heads)
+# and a GQA Dh 80 with a window and an offset, widths off the 64-column grid
 ATTN_CASES = [
     (1, 4, 2, 64, 64, 32, True, None, 0),
     (1, 4, 1, 40, 40, 16, True, 16, 0),
     (1, 2, 1, 16, 64, 32, True, None, 48),
     (1, 2, 2, 24, 40, 16, False, None, 0),
+    (1, 4, 4, 40, 40, 96, True, None, 0),
+    (1, 4, 2, 20, 52, 80, True, 24, 32),
 ]
 
 
@@ -346,13 +349,16 @@ def test_lm_kernels_on_cpu_take_the_plain_versions():
 
 @pytest.mark.parametrize("dh,entry", [
     (64, "flash_attention_bf16_wgmma"), (128, "flash_attention_bf16_wgmma"),
-    (256, "flash_attention_bf16_wgmma"), (16, "flash_attention_bf16"),
-    (32, "flash_attention_bf16"), (80, "flash_attention_bf16"),
-    (192, "flash_attention_bf16"), (255, "flash_attention_bf16"),
+    (256, "flash_attention_bf16_wgmma"), (16, "flash_attention_bf16_wgmma"),
+    (32, "flash_attention_bf16_wgmma"), (80, "flash_attention_bf16_wgmma"),
+    (192, "flash_attention_bf16_wgmma"), (255, "flash_attention_bf16"),
+    (36, "flash_attention_bf16"),
 ])
 def test_flash_attention_bf16_entry_rule(dh, entry):
-    """bf16 takes the tensor-core kernel at the whole-box widths 64, 128
-    and 256 (both served widths), the CUDA-core kernel elsewhere."""
+    """bf16 takes the tensor-core kernel at every width whose rows are
+    whole 16 bytes (Dh % 8 == 0, as TMA needs; the head zero-padded to
+    64, 128 or 256 there): every served width, Phi-3's 96 among them; the
+    CUDA-core kernel at the others."""
     assert _flash_entry(torch.bfloat16, dh) == entry
 
 
@@ -376,7 +382,7 @@ def test_flash_attention_entries_exist_in_the_source():
     """Every entry point the rule names is a C entry of the kernel source."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     named = {_flash_entry(dtype, dh) for dtype in (torch.float32, torch.bfloat16)
-             for dh in (16, 64, 80, 128, 256)}
+             for dh in (16, 36, 64, 80, 96, 128, 256)}
     assert named == {"flash_attention_f32_tc", "flash_attention_bf16",
                      "flash_attention_bf16_wgmma"}
     # the CUDA-core float32 entry stays, as the "before" yardstick that
@@ -455,6 +461,70 @@ def test_split_tf32_products_keep_float32_accuracy(B, Hq, Hkv, T, S, Dh, causal,
     err3 = float((three - want).abs().max())
     err1 = float((one - want).abs().max())
     assert 10 * err3 <= err1, (err3, err1)
+
+
+def _wgmma_attention(q, k, v, causal, window, q_offset):
+    """The bf16 ``wgmma`` kernel's arithmetic on the CPU: the head
+    zero-padded to the instantiation's width (64, 128 or 256; TMA's fill),
+    kv in tiles of its kv rows (128 at width 128, else 64), S = Q Kᵀ in
+    float32 (a product of two bf16 values is exact in float32) scaled by
+    the true Dh ** -0.5, the online softmax in float32 (the row sum of the
+    unrounded P), P rounded to bf16 before P V, float32 sums, O divided by
+    the row sum and rounded to bf16.  Returns (out, the padded O before the
+    division)."""
+    rep = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    T, S, dh = q.shape[2], k.shape[2], q.shape[3]
+    width = next(w for w in (64, 128, 256) if dh <= w)
+    bk = 128 if width == 128 else 64
+    pad = (0, width - dh)
+    qp, kp, vp = (torch.nn.functional.pad(x.float(), pad) for x in (q, k, v))
+    qpos = torch.arange(T)[:, None] + q_offset
+    m = torch.full(q.shape[:3] + (1,), float("-inf"))
+    l = torch.zeros(q.shape[:3] + (1,))
+    o = torch.zeros(q.shape[:3] + (width,))
+    for k0 in range(0, S, bk):
+        kpos = torch.arange(k0, min(k0 + bk, S))[None, :]
+        live = torch.ones(T, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            live &= kpos <= qpos
+        if window is not None:
+            live &= kpos > qpos - window
+        s = (qp @ kp[:, :, k0:k0 + bk].transpose(-1, -2)) * dh ** -0.5
+        s = s.masked_fill(~live, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(s - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vp[:, :, k0:k0 + bk]
+        m = m_new
+    out = torch.where(l > 0, o / torch.where(l > 0, l, torch.ones_like(l)),
+                      torch.zeros_like(o))
+    return out[..., :dh].to(torch.bfloat16), o
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,Dh,causal,window,qoff", [
+    (1, 4, 4, 300, 300, 96, True, None, 0),   # Phi-3-vision: Hkv = Hq
+    (2, 4, 2, 100, 260, 96, True, 64, 160),   # a window, an offset, GQA
+    (1, 4, 1, 77, 190, 96, False, None, 0),   # not causal, MQA
+    (1, 4, 2, 130, 130, 80, True, None, 0),   # Dh 80 (5 of 8 k-steps)
+    (1, 2, 1, 70, 150, 40, True, 50, 80),     # Dh 40, padded to 64
+])
+def test_wgmma_route_arithmetic_holds_the_bf16_bar(B, Hq, Hkv, T, S, Dh, causal,
+                                                   window, qoff):
+    """The ``wgmma`` route at widths off the 64-column grid, emulated on the
+    CPU (``_wgmma_attention``): within the bf16 kernel tolerance of the
+    plain version, and the padded columns of O (V's zeros) exactly 0.  The
+    emulation's float32 matmuls stand for the tensor cores' sums, so the
+    card's tests (``tests/test_torch_cuda.py``) hold the kernel itself."""
+    q, k, v = (torch.from_numpy(_normal((B, h, n, Dh), seed)).to(torch.bfloat16)
+               for seed, (h, n) in enumerate(((Hq, T), (Hkv, S), (Hkv, S))))
+    want = attention_ref(q, k, v, causal=causal, window=window, q_offset=qoff)
+    got, o_padded = _wgmma_attention(q, k, v, causal, window, qoff)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool((o_padded[..., Dh:] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), **KTOL["bfloat16"])
 
 
 #: the reference's bar for the Mamba kernel (tests/test_kernels.py:81-87):
