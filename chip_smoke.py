@@ -271,6 +271,28 @@ Phases:
     diverges), and OLMo, StableLM, Phi-3 and MusicGen's float32 training
     cut as phase 11b.  Each arch's reckoned bytes at full width
     are printed and must be under 80 GB.
+19. The reference's long shapes (``configs.SHAPES``: ``prefill_32k``,
+    ``decode_32k``, ``long_500k``), each sub-phase right after its arch's
+    serving phase on the same bf16 weights: 19a RecurrentGemma-9B (after
+    5), 19b Falcon-Mamba-7B (after 7), 19c Granite-MoE-3B-A800M (after 9),
+    at full width and depth with the kernels.  Served through
+    ``ServeEngine`` (4 slots, ``max_len`` 32,800): prompts of 32,768, 17,
+    2049 and 3000 tokens, 32 new tokens each, checked as phase 5, with the
+    32,768-token prefill and a decode step profiled.  Then each kernel the
+    arch's layers launch at its 32k shape in bfloat16 and float32, against
+    its plain version at ``KERNEL_TOL`` (``flash_attention`` on 512-row
+    query slices through ``q_offset``; ``mamba_scan`` on every 65th
+    channel, on a CPU copy; ``moe_dispatch``'s 262,144 rows into (40,
+    8192, 1536) bit for bit), timed beside its bound (and SDPA, or
+    ``index_add_``).  For the two sub-quadratic archs, ``long_500k`` as the
+    reference's dry run lowers it: a zeroed float32 cache of 524,288
+    positions whose bytes equal ``cache_specs``' stand-in's, 8 decode
+    steps at positions 524,280-524,287 (tokens, finite logits, launches
+    each step), and a float32 cut (RecurrentGemma depth 3 without the
+    tail, Falcon-Mamba depth 2) through the same steps, kernels against
+    plain versions at the model tolerance.  A prefill of 524,288 tokens
+    does not fit one card (PERF.md), and neither package continues a
+    prefill from a cache.
 
 After the phases, one ``{"kernels": [...]}`` line lists every kernel; the
 scans' entries time the float32 prefill inputs the bf16 models now give
@@ -278,7 +300,9 @@ them (the bf16 prefill beside), and ``moe_dispatch``'s and
 ``flash_attention``'s launches add those of 14b's expert-parallel
 prefills (``flash_attention``'s also 17e's) and of phase 18's serving,
 with phase 18's shapes' errors and times (``card_archs``,
-``llama4-scout-17b-a16e_prefill``).
+``llama4-scout-17b-a16e_prefill``); each LM kernel's add those of phase
+19's serving and ``long_500k`` steps, with its 32k shapes' errors and
+times (``long_32k``, by arch).
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -1042,14 +1066,19 @@ KERNEL_NAMES = {"segment_sum": ("segment_sum_",),
                 "moe_dispatch": MOE_KERNELS}
 
 
-def profile_breakdown(fn, label, top=8):
+def profile_breakdown(fn, label, top=8, warm=False):
     """Where one call of ``fn`` spends its time on the card: host wall,
     device busy share, the ``top`` kernels by device time, and each
-    kernel's launches and device time per call in place."""
+    kernel's launches and device time per call in place.  ``fn`` runs once
+    unprofiled first, unless ``warm`` (the caller has just run the same
+    call).  Returns those numbers ({"wall_ms", "busy_ms", "events",
+    "in_place": {kernel: ms per call}}), or None where the profiler
+    recorded no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -1060,8 +1089,10 @@ def profile_breakdown(fn, label, top=8):
     if not n:
         print(f"profile {label}: wall {wall_us / 1e3!r} ms, device time not "
               "measured (the profiler recorded no device activity)")
-        return
+        return None
     total = sum(by_name.values())
+    out = {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "events": n,
+           "in_place": {}}
     print(f"profile {label}: wall {wall_us / 1e3!r} ms (profiled)  device busy "
           f"{busy_us / 1e3!r} ms  busy share {busy_us / wall_us!r}  device "
           f"events {n}")
@@ -1078,6 +1109,8 @@ def profile_breakdown(fn, label, top=8):
                   f"({sum(len(v) for v in spans.values())} kernels), "
                   f"{us / 1e3!r} ms ({us / total:.1%}), "
                   f"{us / calls / 1e3!r} ms per call")
+            out["in_place"][kernel] = us / calls / 1e3
+    return out
 
 
 def solver_device_share(device, n_restarts=N_RESTARTS, steps=PROFILE_STEPS):
@@ -1180,10 +1213,13 @@ def bf16_weights(device, cfg):
 
 def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
                   max_len=SERVE_MAX_LEN, new_tokens=SERVE_NEW, prompts=None,
-                  fixed=SERVE_PROMPTS, phase="5"):
+                  fixed=SERVE_PROMPTS, phase="5", params=None, profiles=None):
     """``arch`` through ServeEngine in bfloat16, on ``prompts`` (default:
-    the ``fixed`` lengths and random ones); returns the kernels' launch
-    counts of the run."""
+    the ``fixed`` lengths and random ones), with ``params`` (bf16 weights
+    of ``cfg``; default: ``bf16_weights`` makes them); returns the
+    kernels' launch counts of the run.  Where ``profiles`` is a dict, it
+    gets ``profile_breakdown``'s numbers of a decode step ("decode") and of
+    the longest prompt's prefill ("prefill")."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.segment_reduce import segment_sum
@@ -1198,7 +1234,10 @@ def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
           f"{cfg.vocab}, {cfg.n_params() / 1e9:.3f} B parameters; launches "
           f"expected per admission and per decode step {expect}")
-    params = bf16_weights(device, cfg)
+    if params is None:
+        params = bf16_weights(device, cfg)
+    elif device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     eng = ServeEngine(cfg, params, ServeConfig(
         slots=slots, max_len=max_len, compute_dtype=torch.bfloat16,
         use_kernels=True, seed=0), device=device)
@@ -1222,7 +1261,7 @@ def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
             _sync(device)
             records[kind].append({
                 "s": time.perf_counter() - t0, "finite": finite,
-                "T": int(logits.shape[1]),
+                "T": int(args[2]["tokens"].shape[1]),
                 "launched": {k: w.launches - before[k]
                              for k, w in kernels.items()}})
             return logits, cache, aux
@@ -1281,14 +1320,20 @@ def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
         longest = max(prompts, key=len)
         batch = {"tokens": torch.zeros((slots, 1), dtype=torch.long, device=device),
                  "positions": torch.full((slots, 1), len(longest), device=device)}
-        profile_breakdown(lambda: M.decode_step(cfg, eng.params, batch, eng.cache,
-                                                use_kernels=True),
-                          f"decode step ({slots} slots)")
+        # the engine has just run both calls at these shapes: no warm-up
+        decode = profile_breakdown(
+            lambda: M.decode_step(cfg, eng.params, batch, eng.cache,
+                                  use_kernels=True),
+            f"decode step ({slots} slots)", warm=True)
+        # the prefill as the engine runs it: the last row unembedded
         tokens = torch.as_tensor(longest[None].astype("int64"), device=device)
-        profile_breakdown(lambda: M.prefill(cfg, eng.params, {"tokens": tokens},
-                                            max_cache_len=max_len,
-                                            use_kernels=True),
-                          f"prefill of {len(longest)} tokens")
+        prefill = profile_breakdown(
+            lambda: M.prefill(cfg, eng.params, {"tokens": tokens},
+                              max_cache_len=max_len, use_kernels=True,
+                              last_only=True),
+            f"prefill of {len(longest)} tokens", warm=True)
+        if profiles is not None:
+            profiles.update(decode=decode, prefill=prefill)
     return launches
 
 
@@ -1387,17 +1432,18 @@ def cuda_core_attention(q, k, v, causal=True, window=None, q_offset=0):
     return out
 
 
-def sdpa_backend(sdpa, out):
-    """The SDPA backends that, each alone, give ``out`` bit for bit: those
-    of them the default dispatch may have chosen for the call ``sdpa``."""
+def sdpa_backend(sdpa, out, tried=("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                                     "CUDNN_ATTENTION", "MATH")):
+    """The SDPA backends of ``tried`` that, each alone, give ``out`` bit for
+    bit: those of them the default dispatch may have chosen for the call
+    ``sdpa``."""
     import warnings
 
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     names = []
-    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
-                 "MATH"):
+    for name in tried:
         backend = getattr(SDPBackend, name, None)
         if backend is None:
             continue
@@ -4505,17 +4551,14 @@ def _logits_recorder():
 
     real, rows = (M.prefill, M.decode_step), []
 
-    def prefill(cfg, params, batch, *args, **kwargs):
-        out = real[0](cfg, params, batch, *args, **kwargs)
-        rows.append(out[0][0, batch["tokens"].shape[1] - 1].clone())
-        return out
+    def keeping(fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            rows.append(out[0][0, -1].clone())
+            return out
+        return run
 
-    def decode_step(*args, **kwargs):
-        out = real[1](*args, **kwargs)
-        rows.append(out[0][0, -1].clone())
-        return out
-
-    M.prefill, M.decode_step = prefill, decode_step
+    M.prefill, M.decode_step = keeping(real[0]), keeping(real[1])
 
     def restore():
         M.prefill, M.decode_step = real
@@ -5533,6 +5576,547 @@ def phase_card_archs(device, archs=CARD_ARCHS, reduced=False):
     return done
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the reference's long shapes
+# ---------------------------------------------------------------------------
+
+#: phase 19's archs, at full width and depth in bfloat16, with the depth of
+#: each one's long_500k float32 cut: one pattern group without the tail
+#: (RecurrentGemma's with its local attention layer), or None for an arch
+#: that is not sub-quadratic, where the reference has no long_500k cell
+LONG_ARCHS = (("19a", SERVE_ARCH, 3), ("19b", MAMBA_ARCH, 2),
+              ("19c", GRANITE_ARCH, None))
+#: the short prompts served beside the prefill_32k one, so that decode runs
+#: with the decode_32k cache length live next to short neighbours
+LONG_NEIGHBOURS = (17, 2049, 3000)
+#: long_500k's decode steps, at the last positions of its cache
+LONG_STEPS = 8
+#: the query rows of each slice that the 32k attention check holds to the
+#: plain version (whose whole (B, Hq, T, S) float32 scores would be 69 GB
+#: at RecurrentGemma's shape and 103 GB at Granite's)
+LONG_ROWS = 512
+#: mamba_scan's channels held to its plain version at 32k: every 65th,
+#: which meets every lane of the kernel's 32-channel tiles; on a CPU copy,
+#: where its 32,768-step loop runs faster than on the card
+LONG_MAMBA_CHANNELS = 65
+
+
+def once_ms(fn, device):
+    """(``fn()``, its milliseconds): CUDA events around one call on the
+    card, the host clock around one on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        t = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _share(bound, device_ms):
+    return None if not device_ms else bound / device_ms
+
+
+def long_flash(device, cfg, t_len, in_place, seed=19):
+    """flash_attention at ``cfg``'s 32k prefill shape (1, Hq, T, Dh) with
+    its kv heads and window, in bfloat16 and float32: the output held to
+    ``attention_ref`` at ``KERNEL_TOL`` on ``LONG_ROWS``-row slices of the
+    queries (the first, one in the middle off the 64-row tiles, the last),
+    each against the keys it can see (cut at the slice's last row and,
+    under a window, at its first visible key; ``q_offset`` places the
+    slice).  Timed: the wrapper (CUDA events), the kernel on the device
+    alone (profiler; and its launches queued behind a sleep kernel, CUDA
+    events, where the profiler may miss launches) and in place
+    (``in_place``, from the served prefill),
+    the plain version on the last slice, SDPA (K and V repeated to the
+    query heads, the window as a boolean mask, TF32 off) with its backend
+    and its max |err| on the slices, and the bound.  Returns the bf16
+    numbers with the float32 ones under "float32"."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    (window,) = _windows(cfg)
+    label = f"(1, {hq}, {t_len}, {dh}) Hkv {hkv} window {window}"
+    starts = (0, t_len // 2 - LONG_ROWS // 2 + 37, t_len - LONG_ROWS)
+    print(f"-- flash_attention at {cfg.name}'s 32k shape {label}, query rows "
+          f"{[(q0, q0 + LONG_ROWS) for q0 in starts]} held to the plain "
+          "version", flush=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    mask = None
+    if window is not None:
+        pos = torch.arange(t_len, device=device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+        del pos
+    out = {"shape": {"B": 1, "Hq": hq, "Hkv": hkv, "T": t_len, "S": t_len,
+                     "Dh": dh, "window": window}, "max_abs_err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = KERNEL_TOL[str(dtype)]
+        q, k, v = (torch.randn((1, h, t_len, dh), generator=gen, device=device)
+                   .to(dtype) for h in (hq, hkv, hkv))
+
+        def run():
+            return flash_attention(q, k, v, causal=True, window=window)
+
+        got = run()
+        _sync(device)
+
+        def plain(q0):
+            lo = 0 if window is None else max(0, q0 - window + 1)
+            hi = q0 + LONG_ROWS
+            return attention_ref(q[:, :, q0:hi], k[:, :, lo:hi], v[:, :, lo:hi],
+                                 causal=True, window=window, q_offset=q0 - lo)
+
+        wants, err = [], 0.0
+        for q0 in starts:
+            want = plain(q0)
+            ok, e = _close(got[:, :, q0:q0 + LONG_ROWS], want, atol, rtol)
+            check(ok and e == e and got.dtype == dtype,
+                  f"flash_attention {label} {dtype} rows {q0}..{q0 + LONG_ROWS}:"
+                  f" max |err| {e} over atol {atol} rtol {rtol}")
+            err = max(err, e)
+            wants.append(want)
+        del got
+        _, plain_ms = once_ms(lambda: plain(starts[-1]), device)
+        kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask,
+                                                  is_causal=mask is None)
+
+        lib_out = sdpa()
+        lib = {"library_max_abs_err": max(
+            _close(lib_out[:, :, q0:q0 + LONG_ROWS], w, 0.0, 0.0)[1]
+            for q0, w in zip(starts, wants)),
+            # the math backend is not tried: it would hold the whole
+            # (1, Hq, T, S) scores
+            "library_backend": sdpa_backend(sdpa, lib_out, tried=(
+                "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"))}
+        del lib_out
+        # warmed by the calls above
+        lib["library_ms"] = time_ms(sdpa, runs=3, per_run=1, warmup=0)
+        bound, bound_by = flash_bound_ms(q, k, True, window, 0)
+        times = {
+            "ms": time_ms(run, runs=5, per_run=2, warmup=1),
+            "kernel_device_ms": kernel_device_ms(
+                run, FLASH_F32 if dtype == torch.float32
+                else "flash_attention_kernel", calls=3),
+            "queued_ms": time_queued_ms(run, calls=5),
+            "plain_ms": plain_ms, "plain_rows": LONG_ROWS,
+            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err, **lib}
+        if dtype == torch.bfloat16:
+            times["in_place_ms"] = in_place.get("flash_attention")
+        print(f"timing flash_attention {label} {dtype}: wrapper {times['ms']!r}"
+              f" ms  kernel (device, alone) {times['kernel_device_ms']!r} ms  "
+              f"queued on the card {times['queued_ms']!r} ms  in the served "
+              f"prefill {times.get('in_place_ms')!r} ms  bound "
+              f"{bound!r} ms ({bound_by}; share of the device ms "
+              f"{_share(bound, times['kernel_device_ms'])!r})  plain on "
+              f"{LONG_ROWS} rows {plain_ms!r} ms  library (sdpa, TF32 off, "
+              f"backend {lib['library_backend']}) {lib['library_ms']!r} ms "
+              f"(max |err| {lib['library_max_abs_err']!r})  max |err| "
+              f"{err!r} (atol {atol}, rtol {rtol})", flush=True)
+        if dtype == torch.float32:
+            out["float32"] = times
+        else:
+            out.update(times, dtype=str(dtype))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        del q, k, v, kr, vr, wants
+    return out
+
+
+def long_rglru(device, width, t_len, in_place, seed=19):
+    """rglru_scan at the 32k prefill (1, T, width), h0 zeros as a prefill
+    starts, in bfloat16 and with float32 inputs (as the bf16 model gives
+    them), held to the plain version at ``KERNEL_TOL``: the plain version
+    takes every input in float32, so its one run on the float32 inputs
+    (the bf16 values) gives both dtypes' want, the bf16 one rounded as it
+    rounds it.  Timed as ``long_flash``; returns the float32 inputs'
+    numbers with the bf16 ones under "bf16"."""
+    import torch
+    from repro_torch.kernels.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan import _geometry, chunking, rglru_scan
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = torch.randn((1, t_len, width), generator=gen, device=device).to(
+        torch.bfloat16)
+    a = torch.sigmoid(torch.randn((1, t_len, width), generator=gen,
+                                  device=device)).to(torch.bfloat16)
+    h0 = torch.zeros(1, width, device=device)
+    (y_ref, h_ref), plain_ms = once_ms(
+        lambda: rglru_scan_ref(x.float(), a.float(), h0), device)
+    chunk, n_chunks = chunking(1, t_len, width, *_geometry(device.index or 0))
+    out = {"shape": {"B": 1, "T": t_len, "D": width}, "max_abs_err": 0.0,
+           "chunks": n_chunks, "chunk": chunk}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = KERNEL_TOL[str(dtype)]
+        xs, gs = x.to(dtype), a.to(dtype)
+
+        def run():
+            return rglru_scan(xs, gs, h0)
+
+        y, h_t = run()
+        _sync(device)
+        ok_y, err_y = _close(y, y_ref.to(dtype), atol, rtol)
+        ok_h, err_h = _close(h_t, h_ref, atol, rtol)
+        check(ok_y and ok_h and y.dtype == dtype,
+              f"rglru_scan (1,{t_len},{width}) {dtype}: max |err| y {err_y} "
+              f"h_T {err_h} over atol {atol} rtol {rtol}")
+        del y, h_t
+        per_name = {}
+        bound, bound_by = rglru_bound_ms(xs, True)
+        times = {"ms": time_ms(run, runs=10, per_run=5),
+                 "kernel_device_ms": kernel_device_ms(
+                     run, RGLRU_KERNELS, calls=5, recorded_per_call=per_name),
+                 "queued_ms": time_queued_ms(run, calls=5),
+                 "recorded_launches_per_call": per_name,
+                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                 "max_abs_err": max(err_y, err_h), "library_ms": None}
+        if dtype == torch.float32:
+            times["in_place_ms"] = in_place.get("rglru_scan")
+        print(f"rglru_scan (1,{t_len},{width}) {dtype}, {n_chunks} chunks of "
+              f"{chunk} steps: max |err| y {err_y!r} h_T {err_h!r} (atol "
+              f"{atol}, rtol {rtol}); wrapper {times['ms']!r} ms  kernels "
+              f"(device, alone) {times['kernel_device_ms']!r} ms (launches a "
+              f"call recorded {per_name})  queued on the card "
+              f"{times['queued_ms']!r} ms  in the served prefill "
+              f"{times.get('in_place_ms')!r} ms  bound {bound!r} ms "
+              f"({bound_by}; share {_share(bound, times['kernel_device_ms'])!r})"
+              f"  plain (float32 inputs, on the card) {plain_ms!r} ms",
+              flush=True)
+        if dtype == torch.float32:
+            out.update(times, dtype=str(dtype))
+        else:
+            out["bf16"] = times
+        out["max_abs_err"] = max(out["max_abs_err"], err_y, err_h)
+    return out
+
+
+def long_mamba(device, d_inner, d_state, t_len, in_place, seed=19):
+    """mamba_scan at the 32k prefill (1, T, d_inner, d_state) with A and D
+    bfloat16 as the model holds them and a random h0, in bfloat16 and with
+    float32 inputs, the whole shape on the card, held to the plain version
+    at ``KERNEL_TOL`` on every ``LONG_MAMBA_CHANNELS``-th channel, run on
+    a CPU copy (one run gives both dtypes' want, as in ``long_rglru``).
+    Timed as ``long_flash``; returns the float32 inputs' numbers with the
+    bf16 ones under "bf16"."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.ref import mamba_scan_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    A = -torch.arange(1, d_state + 1, dtype=torch.float32, device=device
+                      ).expand(d_inner, d_state).to(torch.bfloat16)
+    D = normal(d_inner).to(torch.bfloat16)
+    x = normal(1, t_len, d_inner).to(torch.bfloat16)
+    delta = F.softplus(normal(1, t_len, d_inner)).to(torch.bfloat16)
+    Bc = normal(1, t_len, d_state).to(torch.bfloat16)
+    Cc = normal(1, t_len, d_state).to(torch.bfloat16)
+    h0 = normal(1, d_inner, d_state)
+    sl = torch.arange(0, d_inner, LONG_MAMBA_CHANNELS, device=device)
+    cpu = torch.device("cpu")
+    plain_args = [t.float().to(cpu) for t in (
+        x[..., sl], delta[..., sl], A[sl], Bc, Cc, D[sl], h0[:, sl])]
+    (y_ref, h_ref), plain_ms = once_ms(lambda: mamba_scan_ref(*plain_args), cpu)
+    out = {"shape": {"B": 1, "T": t_len, "Di": d_inner, "Ds": d_state,
+                     "A_D_dtype": "torch.bfloat16"},
+           "plain_channels": f"every {LONG_MAMBA_CHANNELS}th of {d_inner} "
+                             f"({sl.numel()}), on the CPU",
+           "max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = KERNEL_TOL[str(dtype)]
+        args = (x.to(dtype), delta.to(dtype), A, Bc.to(dtype), Cc.to(dtype),
+                D, h0)
+
+        def run():
+            return mamba_scan(*args)
+
+        y, h_t = run()
+        _sync(device)
+        ok_y, err_y = _close(y[..., sl].cpu(), y_ref.to(dtype), atol, rtol)
+        ok_h, err_h = _close(h_t[:, sl].cpu(), h_ref, atol, rtol)
+        check(ok_y and ok_h and y.dtype == dtype,
+              f"mamba_scan (1,{t_len},{d_inner},{d_state}) {dtype} on "
+              f"{out['plain_channels']}: max |err| y {err_y} h_T {err_h} over "
+              f"atol {atol} rtol {rtol}")
+        del y, h_t
+        bound, bound_by, sfu = mamba_bound_ms(1, t_len, d_inner, d_state,
+                                              args[0].element_size(), 2, True)
+        times = {"ms": time_ms(run, runs=10, per_run=5),
+                 "kernel_device_ms": kernel_device_ms(run, "mamba_scan_kernel",
+                                                      calls=5),
+                 "queued_ms": time_queued_ms(run, calls=5),
+                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                 "exp_sfu_ms": sfu, "max_abs_err": max(err_y, err_h),
+                 "library_ms": None}
+        if dtype == torch.float32:
+            times["in_place_ms"] = in_place.get("mamba_scan")
+        print(f"mamba_scan (1,{t_len},{d_inner},{d_state}) {dtype}: max |err| "
+              f"y {err_y!r} h_T {err_h!r} on {out['plain_channels']} (atol "
+              f"{atol}, rtol {rtol}); wrapper {times['ms']!r} ms  kernel "
+              f"(device, alone) {times['kernel_device_ms']!r} ms  queued on the "
+              f"card {times['queued_ms']!r} ms  in the served prefill "
+              f"{times.get('in_place_ms')!r} ms  bound {bound!r} ms "
+              f"({bound_by}; share {_share(bound, times['kernel_device_ms'])!r};"
+              f" exp on the SFUs {sfu!r} ms)  plain on those channels "
+              f"{plain_ms!r} ms", flush=True)
+        if dtype == torch.float32:
+            out.update(times, dtype=str(dtype))
+        else:
+            out["bf16"] = times
+        out["max_abs_err"] = max(out["max_abs_err"], err_y, err_h)
+    return out
+
+
+def long_moe(device, cfg, t_len, in_place, seed=19):
+    """moe_dispatch at the 32k prefill: ``t_len`` tokens' top-k rows into
+    (E, C, d_model) at the prefill's capacity, every kept (expert, slot)
+    pair unique, in bfloat16 (served) and float32 (the same values), held
+    to the plain version bit for bit.  Timed as ``long_flash``, with
+    ``index_add_`` as the library call; returns the bf16 numbers with the
+    float32 ones under "float32"."""
+    import torch
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    from repro_torch.kernels.ref import moe_dispatch_ref
+
+    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    c = moe_capacity(t_len, k, e, cfg.capacity_factor)
+    tokens, ids, slot_ids = _routed(t_len, k, e, c, d, torch.bfloat16,
+                                    "unique", device, seed)
+    kept = int((slot_ids < c).sum())
+    flat = torch.where(slot_ids < c, ids.long() * c + slot_ids.long(), e * c)
+    out = {"shape": {"T": tokens.shape[0], "D": d, "E": e, "C": c,
+                     "kept": kept}, "max_abs_err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        toks = tokens.to(dtype)
+
+        def run():
+            return moe_dispatch(toks, ids, slot_ids, e, c)
+
+        def library():  # one PyTorch call: index_add_ into (E·C + 1, D)
+            return torch.zeros((e * c + 1, d), dtype=dtype,
+                               device=device).index_add_(0, flat, toks)
+
+        got = run()
+        want, plain_ms = once_ms(
+            lambda: moe_dispatch_ref(toks, ids, slot_ids, e, c), device)
+        check(torch.equal(got, want) and tuple(got.shape) == (e, c, d),
+              f"moe_dispatch T={tokens.shape[0]} into ({e}, {c}, {d}) {dtype}: "
+              "not equal bit for bit to the plain version")
+        del got, want
+        bound, bound_by = moe_bound_ms(kept, tokens.shape[0], d, e, c,
+                                       toks.element_size())
+        times = {"ms": time_ms(run, runs=10, per_run=5),
+                 "kernel_device_ms": kernel_device_ms(run, MOE_KERNELS, calls=5),
+                 "queued_ms": time_queued_ms(run, calls=5),
+                 "plain_ms": plain_ms,
+                 "library_ms": time_ms(library, runs=10, per_run=5),
+                 "bound_ms": bound, "bound_by": bound_by, "max_abs_err": 0.0}
+        if dtype == torch.bfloat16:
+            times["in_place_ms"] = in_place.get("moe_dispatch")
+        print(f"moe_dispatch T={tokens.shape[0]} D={d} E={e} C={c} {dtype}: "
+              f"kept {kept}, equal bit for bit to the plain version; wrapper "
+              f"{times['ms']!r} ms  kernels (device, alone) "
+              f"{times['kernel_device_ms']!r} ms  queued on the card "
+              f"{times['queued_ms']!r} ms  in the served prefill "
+              f"{times.get('in_place_ms')!r} ms  bound {bound!r} ms ({bound_by};"
+              f" share {_share(bound, times['kernel_device_ms'])!r})  plain "
+              f"{plain_ms!r} ms  library (index_add_) {times['library_ms']!r} "
+              "ms", flush=True)
+        if dtype == torch.float32:
+            out["float32"] = times
+        else:
+            out.update(times, dtype=str(dtype))
+        del toks
+    return out
+
+
+def phase_long_kernels(device, cfg, t_len, in_place):
+    """Each LM kernel that ``cfg``'s layers launch, at its 32k prefill
+    shape, against its plain version and timed; ``in_place`` holds each
+    kernel's device ms a call in the served prefill.  Returns the numbers
+    by kernel name."""
+    mixers = {b.mixer for b in cfg.pattern + cfg.tail}
+    out = {}
+    if "attn" in mixers:
+        out["flash_attention"] = long_flash(device, cfg, t_len, in_place)
+    if "rglru" in mixers:
+        out["rglru_scan"] = long_rglru(device, cfg.rglru_width, t_len, in_place)
+    if "ssm" in mixers:
+        out["mamba_scan"] = long_mamba(device, cfg.ssm_d_inner, cfg.ssm_state,
+                                       t_len, in_place)
+    if cfg.n_experts:
+        out["moe_dispatch"] = long_moe(device, cfg, t_len, in_place)
+    return out
+
+
+def phase_long_500k(device, cfg, params, cut_depth, phase, steps=LONG_STEPS):
+    """long_500k as the reference's dry run lowers it: ``steps`` decode
+    steps at the last positions of a zeroed float32 cache of 524,288
+    positions (B = 1), ``cfg`` at full width and depth in bfloat16 with the
+    kernels (``params``): the cache's bytes and leaves equal those of
+    ``configs.cache_specs``' stand-in exactly, every greedy token lies in
+    the vocabulary, every logit is finite and each step launches
+    ``expected_launches``' per step.  Then a float32 cut of ``cut_depth``
+    layers (one pattern group, no tail) through the same positions on
+    seeded tokens, the kernels against the plain versions at
+    ``MODEL_TOL``.  Returns the bf16 steps' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, cache_specs
+    from repro_torch.models import model as M
+
+    spec = SHAPES["long_500k"]
+    n_pos, rows = spec.seq_len, spec.global_batch
+    positions = range(n_pos - steps, n_pos)
+    print(f"== phase {phase} long_500k: {cfg.name} decode at positions "
+          f"{positions[0]}..{positions[-1]} from a zeroed float32 cache of "
+          f"{n_pos} (B = {rows})", flush=True)
+    kernels = _lm_kernels()
+    expect = {k: v[1] for k, v in expected_launches(cfg).items()}
+
+    def layout(tree):
+        return [(tuple(a.shape), a.dtype) for a in _leaves(tree)]
+
+    def nbytes(tree):
+        return sum(a.numel() * a.element_size() for a in _leaves(tree))
+
+    stand_in = cache_specs(cfg, "long_500k", torch.float32)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    cache = M.init_cache(cfg, rows, n_pos, dtype=torch.float32, device=device)
+    check(nbytes(cache) == nbytes(stand_in)
+          and layout(cache) == layout(stand_in),
+          f"the long_500k cache holds {nbytes(cache)} bytes, cache_specs' "
+          f"stand-in {nbytes(stand_in)}")
+    print(f"long_500k cache: {nbytes(cache)} bytes ({nbytes(cache) / 1e9!r} GB)"
+          f", equal to cache_specs(cfg, 'long_500k', float32)'s")
+    rng = np.random.default_rng(19)
+    token, tokens, walls = int(rng.integers(0, cfg.vocab)), [], []
+    for w in kernels.values():
+        w.launches = 0
+    for pos in positions:
+        batch = {"tokens": torch.tensor([[token]], device=device),
+                 "positions": torch.tensor([[pos]], device=device)}
+        before = {k: w.launches for k, w in kernels.items()}
+        _sync(device)
+        t = time.perf_counter()
+        logits, _, _ = M.decode_step(cfg, params, batch, cache, use_kernels=True)
+        finite = bool(torch.isfinite(logits).all())
+        token = int(torch.argmax(logits[0, -1]))
+        walls.append(time.perf_counter() - t)
+        launched = {k: w.launches - before[k] for k, w in kernels.items()}
+        check(finite and 0 <= token < cfg.vocab,
+              f"long_500k step at {pos}: finite {finite}, token {token}")
+        check(launched == expect, f"long_500k step at {pos} launched "
+              f"{launched}, wanted {expect}")
+        tokens.append(token)
+    launches = {k: w.launches for k, w in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    print(f"long_500k bf16, {steps} steps: {statistics.median(walls) * 1e3!r} "
+          f"ms a step (median; first {walls[0] * 1e3!r} ms, last "
+          f"{walls[-1] * 1e3!r} ms); greedy tokens {tokens}; launches "
+          f"{launches}; peak device memory {peak / 1e9!r} GB")
+    check(peak < CARD_BYTES, f"long_500k peak device memory {peak / 1e9} GB")
+    del cache
+
+    cut = dataclasses.replace(cfg, n_layers=cut_depth, tail=())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    weights = M.init(cut, gen, device=device, dtype=torch.float32)
+    feed = [int(t) for t in rng.integers(0, cfg.vocab, size=steps)]
+    outs = {}
+    for use_kernels in (True, False):
+        cache = M.init_cache(cut, rows, n_pos, dtype=torch.float32,
+                             device=device)
+        before = sum(w.launches for w in kernels.values())
+        outs[use_kernels] = [
+            M.decode_step(cut, weights, {
+                "tokens": torch.tensor([[tok]], device=device),
+                "positions": torch.tensor([[pos]], device=device)},
+                cache, use_kernels=use_kernels)[0]
+            for tok, pos in zip(feed, positions)]
+        _sync(device)
+        launched = sum(w.launches for w in kernels.values()) - before
+        check((launched > 0) == use_kernels,
+              f"long_500k cut use_kernels={use_kernels}: {launched} launches")
+        del cache
+    atol, rtol = MODEL_TOL
+    worst = 0.0
+    for pos, got, want in zip(positions, outs[True], outs[False]):
+        ok, err = _close(got, want, atol, rtol)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"long_500k float32 cut, step at {pos}: max |err| {err} over "
+              f"atol {atol} rtol {rtol}")
+        worst = max(worst, err)
+    print(f"long_500k float32 cut to depth {cut_depth} ({[b.mixer for b in cut.pattern]},"
+          f" no tail), {steps} steps at positions {positions[0]}..{positions[-1]}:"
+          f" kernels vs plain max |err| {worst!r} (atol {atol}, rtol {rtol}; "
+          f"max |logit| {max(float(w.abs().max()) for w in outs[False])!r})")
+    return launches
+
+
+def phase_long_context(device, phase, arch, cut_depth, params=None):
+    """Phase 19 for one arch at full width and depth in bfloat16 with the
+    kernels (``params``; default: ``bf16_weights`` makes them): serving at
+    32k (``ServeEngine``, 4 slots of ``max_len`` prefill_32k + 32, the
+    32,768-token prompt beside ``LONG_NEIGHBOURS``, 32 new tokens each,
+    checked as phase 5), each kernel its layers launch at its 32k shape
+    against its plain version (``phase_long_kernels``), and for a
+    sub-quadratic arch long_500k (``phase_long_500k``).  Returns the
+    serving's and long_500k's launches, the kernels' numbers and the
+    wall."""
+    from repro_torch.configs import SHAPES, get_config
+
+    t = time.perf_counter()
+    cfg = get_config(arch)
+    prompt_len = SHAPES["prefill_32k"].seq_len
+    check(SHAPES["decode_32k"].seq_len == prompt_len,
+          "decode_32k's cache is not the prefill_32k prompt's length")
+    print(f"== phase {phase}: {arch}'s long shapes (prefill_32k, decode_32k"
+          f"{', long_500k' if cut_depth else ''}) at full width and depth, "
+          "bfloat16, kernels on", flush=True)
+    if params is None:
+        params = bf16_weights(device, cfg)
+    profiles = {}
+    launches = phase_serving(
+        device, cfg=cfg, params=params, max_len=prompt_len + SERVE_NEW,
+        prompts=serve_prompts(cfg.vocab, fixed=(prompt_len,) + LONG_NEIGHBOURS,
+                              n_random=0),
+        phase=f"{phase} 32k", profiles=profiles)
+    in_place = (profiles.get("prefill") or {}).get("in_place", {})
+    free_device_memory(device)
+    kernels = phase_long_kernels(device, cfg, prompt_len, in_place)
+    free_device_memory(device)
+    if cut_depth is not None:
+        for k, n in phase_long_500k(device, cfg, params, cut_depth,
+                                    phase).items():
+            launches[k] += n
+        free_device_memory(device)
+    s = time.perf_counter() - t
+    print(f"phase {phase} ({arch}): {s:.1f} s", flush=True)
+    return {"arch": arch, "launches": launches, "kernels": kernels, "s": s}
+
+
 def free_device_memory(device) -> None:
     """Return what the finished phases held to the card; print the run's
     wall so far."""
@@ -5567,16 +6151,33 @@ def main() -> None:
     phase_batched_solver(device)
     solver_device_share(device)
     free_device_memory(device)
-    served = phase_serving(device)
+    # each serving phase's weights serve its arch's long shapes (phase 19)
+    # next, through params=, before they are freed
+    from repro_torch.configs import get_config
+
+    weights = bf16_weights(device, get_config(SERVE_ARCH))
+    served = phase_serving(device, params=weights)
+    long = {"19a": phase_long_context(device, *LONG_ARCHS[0], params=weights)}
+    del weights
+    free_device_memory(device)
     entries += phase_lm_kernels(device, served)
     phase_model_kernels_vs_plain(device)
     free_device_memory(device)
-    served = phase_serving(device, MAMBA_ARCH, fixed=MAMBA_PROMPTS, phase="7")
+    weights = bf16_weights(device, get_config(MAMBA_ARCH))
+    served = phase_serving(device, MAMBA_ARCH, fixed=MAMBA_PROMPTS, phase="7",
+                           params=weights)
+    long["19b"] = phase_long_context(device, *LONG_ARCHS[1], params=weights)
+    del weights
+    free_device_memory(device)
     entries.append(phase_mamba_kernel(device, served))
     phase_model_kernels_vs_plain(device, MAMBA_ARCH, depth=4, phase="8b")
     free_device_memory(device)
+    weights = bf16_weights(device, get_config(GRANITE_ARCH))
     granite = phase_serving(device, GRANITE_ARCH, fixed=GRANITE_PROMPTS,
-                            phase="9")
+                            phase="9", params=weights)
+    long["19c"] = phase_long_context(device, *LONG_ARCHS[2], params=weights)
+    del weights
+    free_device_memory(device)
     moe, flash_granite = phase_moe_kernel(device, granite)
     entries.append(moe)
     phase_moe_model(device)
@@ -5660,6 +6261,23 @@ def main() -> None:
             moe[f"{arch}_prefill"] = {k: v for k, v in r["moe"].items()
                                       if k not in ("name", "route", "source",
                                                    "replaces", "ptxas")}
+    # phase 19: the long shapes' serving and long_500k launches, and the
+    # kernels at their 32k shapes
+    by_name = {e["name"]: e for e in entries}
+    for phase, r in long.items():
+        for name, n in r["launches"].items():
+            if n and name in by_name:
+                e = by_name[name]
+                e.setdefault("launches_by_path", {"serving": e["launches"]})
+                e["launches_by_path"][f"{r['arch']} long shapes ({phase})"] = n
+                e["launches"] += n
+        for name, numbers in r["kernels"].items():
+            e = by_name[name]
+            e.setdefault("long_32k", {})[r["arch"]] = numbers
+            e["max_abs_err"] = max(e["max_abs_err"], numbers["max_abs_err"])
+    print(f"phase 19: {sum(r['s'] for r in long.values()):.1f} s ("
+          + ", ".join(f"{p} {r['s']:.1f} s" for p, r in long.items())
+          + f") on {card_name_and_limit()}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {

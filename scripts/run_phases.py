@@ -20,7 +20,10 @@ runs (``18a`` OLMo-1B, ``18b`` StableLM-1.6B, ``18c`` Mistral-NeMo-12B,
 ``18d`` Llama4-Scout at depth 8, ``18e`` Phi-3-vision, ``18f``
 MusicGen-large, each alone), ``18w`` bf16 ``flash_attention`` at head
 widths off the 64-column grid (which the whole script runs before 18a),
-after phase 1 (the card's name and
+``19`` the reference's long shapes (``19a`` RecurrentGemma-9B, ``19b``
+Falcon-Mamba-7B, ``19c`` Granite-MoE-3B-A800M, each alone; each makes
+its own weights, where the whole script reuses those of phases 5, 7 and
+9), after phase 1 (the card's name and
 power limit, and the kernels built).  Phases 6a, 8a and 10a run on
 stand-in launch counts (they print their kernels-line entries).  Needs a
 CUDA card.
@@ -35,7 +38,8 @@ ap = argparse.ArgumentParser()
 ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
 ap.add_argument("phases", nargs="+", choices=[
     "5", "6a", "7", "8a", "10a", "10b", "14", "15", "16", "17", "18",
-    "18w", "18a", "18b", "18c", "18d", "18e", "18f"])
+    "18w", "18a", "18b", "18c", "18d", "18e", "18f", "19", "19a", "19b",
+    "19c"])
 args = ap.parse_args()
 tree = Path(args.tree).resolve()
 sys.path[:0] = [str(tree), str(tree / "src")]
@@ -81,6 +85,12 @@ for phase in args.phases:
     elif phase.startswith("18"):
         spec = next(s for s in C.CARD_ARCHS if s.phase == phase)
         print(json.dumps(C.phase_card_arch(device, spec), default=str))
+    elif phase.startswith("19"):
+        for spec in C.LONG_ARCHS:
+            if phase in ("19", spec[0]):
+                print(json.dumps(C.phase_long_context(device, *spec),
+                                 default=str))
+                C.free_device_memory(device)
     else:
         print(json.dumps(C.phase_dryrun(device)[1], default=str))
     C.free_device_memory(device)

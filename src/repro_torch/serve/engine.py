@@ -21,6 +21,10 @@ from the reference, on purpose:
   new one on the wrong axis);
 * ``ServeConfig.use_kernels`` reaches prefill and decode (the reference
   never reads it), so on the card the Hopper kernels serve;
+* an admission's prefill unembeds only the last prompt row, the one whose
+  logits give the first token (``M.prefill(last_only=True)``); the
+  reference unembeds every row.  At a 32,768-token prompt and a vocab of
+  256,000 the whole rows' float32 logits would be 33.5 GB;
 * the shared cache is updated in place;
 * sampling at ``temperature > 0`` draws from the engine's
   ``torch.Generator`` seeded with ``ServeConfig.seed``: not ``jax.random``'s
@@ -164,13 +168,15 @@ class ServeEngine:
                              f"max_len {self.scfg.max_len}")
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None],
                                  device=self.device)
+        # only row T-1's logits are read: the unembedding runs on that row
+        # alone (the reference computes every row's and reads the same one)
         logits, cache1, _ = M.prefill(
             self.cfg, self.params, {"tokens": tokens},
             max_cache_len=self.scfg.max_len, use_kernels=self.scfg.use_kernels,
-            mesh=self.mesh,
+            last_only=True, mesh=self.mesh,
         )
         self._merge(s, cache1)
-        last = S.assemble(logits[0, T - 1], self.mesh, ("model",), 0)
+        last = S.assemble(logits[0, -1], self.mesh, ("model",), 0)
         req.output.append(int(torch.argmax(last)))
         req.ttft_steps = self.step_count + 1
         self.slot_req[s] = req

@@ -97,6 +97,31 @@ def test_recurrentgemma_engine_matches_greedy_forward(rgemma):
     assert req.output == _greedy(rcfg, rparams, prompt, 6)
 
 
+def test_engine_prefill_unembeds_the_last_row_only(rgemma, monkeypatch):
+    """Each admission's ``M.prefill`` asks for the last row alone and
+    returns (1, 1, V) logits, not (1, T, V); the tokens stay the greedy
+    reference's."""
+    rcfg, pcfg, rparams, pparams = rgemma
+    real, seen = M.prefill, []
+
+    def prefill(*args, **kwargs):
+        logits, cache, aux = real(*args, **kwargs)
+        seen.append((kwargs.get("last_only"), tuple(logits.shape)))
+        return logits, cache, aux
+
+    monkeypatch.setattr(M, "prefill", prefill)
+    prompt = np.arange(1, 9, dtype=np.int32)
+    eng = ServeEngine(pcfg, pparams, ServeConfig(slots=2, max_len=64), device=CPU)
+    reqs = [Request(rid=0, prompt=prompt, max_new_tokens=6),
+            Request(rid=1, prompt=np.arange(3, 20, dtype=np.int32),
+                    max_new_tokens=2)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert seen == [(True, (1, 1, rcfg.vocab))] * 2
+    assert reqs[0].output == _greedy(rcfg, rparams, prompt, 6)
+
+
 @pytest.mark.parametrize("slots", [2, 3])
 def test_recurrentgemma_concurrent_requests_stay_apart(rgemma, slots):
     """Several requests sharing the decode grid (slots == 3 is where the
