@@ -41,7 +41,8 @@ Phases:
    share of a warm single-job solve, from ``torch.profiler``.
 5. Serving, the LM path: RecurrentGemma-9B at full width and depth (38
    layers, d_model 4096, vocab 256000), random bfloat16 weights from a
-   seeded generator, through ``ServeEngine`` (4 slots, max_len 4096): 8
+   seeded generator (in the whole script phase 20a's float32 weights,
+   cast), through ``ServeEngine`` (4 slots, max_len 4096): 8
    requests with prompts of 17, 2047, 2049, 3000 and 4 random lengths, 32
    new tokens each.  Every request must finish with 32 tokens in the
    vocabulary, every logit must be finite, ``flash_attention`` must launch
@@ -60,11 +61,10 @@ Phases:
    ``flash_attention`` also one call alone: CUDA events around a single
    launch after a synchronize, median of 20; the launches queued on the
    card behind a sleep kernel; and the CUDA-core kernel that served bf16
-   before, called through its C entry); then a
-   full-width cut to depth 5 — one (rg, rg, attn) group plus the two-block
-   tail — in float32, run with the kernels and with the plain versions:
-   the logits of a 3000-token prefill and of three decode steps must
-   agree.
+   before, called through its C entry).  The full-width float32 model,
+   kernels against plain versions, is phase 20a's full-depth hold (it
+   took the place of phase 6b's cut to depth 5, whose function
+   ``phase_model_kernels_vs_plain`` the other cuts run).
 7. Serving Falcon-Mamba-7B, after RecurrentGemma's weights are freed: 64
    Mamba layers, d_model 4096, d_inner 8192, d_state 16, vocab 65024, at
    full width and depth in bfloat16 (14.54 GB) through the same engine: 8
@@ -293,6 +293,23 @@ Phases:
     plain versions at the model tolerance.  A prefill of 524,288 tokens
     does not fit one card (PERF.md), and neither package continues a
     prefill from a cache.
+20. The reference's default serving dtype, float32, at full width and
+    depth: 20a RecurrentGemma-9B (before phase 5), 20b Falcon-Mamba-7B
+    (before 7), 20c Granite-MoE-3B-A800M (before 9), 20d Qwen3-1.7B (after
+    10).  Each runs ``repro_torch.launch.serve.main(["--arch", arch])`` as
+    a user does, at the reference launcher's defaults (8 requests of 4-23
+    tokens, 4 slots, ``max_len`` 256, 16 new tokens, seed 0): tokens in the
+    vocabulary, finite logits, launches per admission and per decode step
+    as ``expected_launches`` gives, each launch on its kernel's float32 C
+    entry, float32 matmuls without TF32, init and serving peaks under 80
+    GB, with the tokens/s, decode steps and a profiled decode step.  On
+    the launcher's weights (kept by a wrapper of ``model.init``), the
+    full-depth hold: a prefill (3000 tokens; Falcon-Mamba 512) and three
+    decode steps, kernels against plain versions at the model tolerance
+    (Granite under phase 10b's routing rule), each layer's hidden-state
+    gap printed; then the prefill as the engine runs it, profiled.  The
+    weights' bf16 cast, which equals ``bf16_weights``' bit for bit, serves
+    phases 5, 7 and 9 and their long shapes (19).
 
 After the phases, one ``{"kernels": [...]}`` line lists every kernel; the
 scans' entries time the float32 prefill inputs the bf16 models now give
@@ -302,7 +319,9 @@ prefills (``flash_attention``'s also 17e's) and of phase 18's serving,
 with phase 18's shapes' errors and times (``card_archs``,
 ``llama4-scout-17b-a16e_prefill``); each LM kernel's add those of phase
 19's serving and ``long_500k`` steps, with its 32k shapes' errors and
-times (``long_32k``, by arch).
+times (``long_32k``, by arch), and those of phase 20's float32 serving
+through the launcher, with each kernel's device ms a launch in the
+float32 prefill (``float32_in_place_ms``, by arch).
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -335,8 +354,8 @@ TF32_OPS_PER_S = 495e12
 #: kernels sum in another order than their plain versions
 KERNEL_TOL = {"torch.float32": (2e-5, 1e-2), "torch.bfloat16": (2e-2, 1e-2)}
 #: float32 model logits, kernels against plain versions: the same float32
-#: sums in another order, carried through 5 (RecurrentGemma) or 4
-#: (Falcon-Mamba) full-width layers and the 4096-wide unembedding
+#: sums in another order, carried through a cut's full-width layers (phase
+#: 20: every layer) and the unembedding
 MODEL_TOL = (1e-3, 1e-3)
 
 #: main-path scale: the paper's 8-DC testbed and a 20M-word corpus
@@ -390,12 +409,12 @@ SCHED_POLICIES = (("independent", "makespan"), ("sequential", "makespan"),
                   ("joint", "makespan"), ("joint", "min_max_slowdown"))
 ONLINE_RESTARTS, ONLINE_STEPS = 8, 50
 #: the schedules' and pipelines' plans (phases 12 and 13): the paper's 24
-#: restarts at half its 500 steps, and run_online (above) at a quarter of
-#: its default 200 steps.  The solves are host-bound, their walls in
-#: proportion to the steps; their checks hold by construction at any
-#: count.  The main path (phase 2) and the batched solver (phase 4) keep
-#: 24 x 500.
-SCHED_RESTARTS, SCHED_STEPS = 24, 250
+#: restarts at a fifth of its 500 steps, and run_online (above) at a
+#: quarter of its default 200 steps.  The solves are host-bound, their
+#: walls in proportion to the steps; their checks hold by construction at
+#: any count.  The main path (phase 2) and the batched solver (phase 4)
+#: keep 24 x 500.
+SCHED_RESTARTS, SCHED_STEPS = 24, 100
 #: pipelines (phase 13): a 3-stage word-count chain, each stage after the
 #: first counting the counts of the one before (its map keeps the low 20
 #: bits of a value, as word count's does); the example's pipeline_pair
@@ -521,23 +540,40 @@ def time_queued_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
-def kernel_device_ms(fn, names, calls: int = 20, recorded_per_call=None,
-                     sessions: int = 3):
+def trace_complete(recorded, counted) -> bool:
+    """Whether a profiler session's trace holds every launch of a kernel:
+    ``recorded`` is the launches it recorded by kernel name, ``counted``
+    the launches the wrapper counted over the same calls.  A call launches
+    each of its kernels once, or one of them not at all (``rglru_scan``'s
+    chunk pass where one chunk covers T, ``moe_dispatch``'s small path), so
+    each name holds ``counted`` launches or none, and one name holds
+    ``counted``.  A trace with fewer is partial: no device time is read
+    from it."""
+    return counted > 0 and all(n in (0, counted) for n in recorded.values()) \
+        and max(recorded.values(), default=0) == counted
+
+
+def kernel_device_ms(fn, names, *, wrapper, calls: int = 20,
+                     recorded_per_call=None, sessions: int = 3):
     """Mean device time of one call of ``fn``, from ``torch.profiler`` over
     ``calls`` calls: for each kernel name in ``names`` (a substring of the
     CUDA kernels' names; one string or several, for a call that launches
     several kernels or one of several), its device time over the launches
     the profiler recorded, summed over the names it recorded; ``None``
-    where it records no device time.  Where ``recorded_per_call`` is a
-    dict, it gets each name's launches the profiler recorded, over
-    ``calls``; it stays empty where the profiler cannot trace.
+    where no session's trace was complete.  ``wrapper`` counts the
+    launches (its ``.launches``: a kernel wrapper, or
+    ``cuda_core_attention``); a session whose trace holds fewer than it
+    counted over the same calls (``trace_complete``) gives no device time,
+    and is made again, up to ``sessions`` in all; where none was complete,
+    the calls' time queued on the card is printed instead, labelled as
+    queued.  Where ``recorded_per_call`` is a dict, it gets each name's
+    launches the last session recorded, over ``calls``; it stays empty
+    where the profiler cannot trace.
 
     Each session traces a warm-up step of ``calls`` calls whose events it
     drops before the ``calls`` it keeps: a session started without one
     missed the first launches after it enabled its tracing (on an H100 it
-    recorded 3 or 4 of 5 calls' launches, and once none).  A session that
-    records no launch of any name is made again, up to ``sessions`` in
-    all."""
+    recorded 3 or 4 of 5 calls' launches, and once none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -551,39 +587,45 @@ def kernel_device_ms(fn, names, calls: int = 20, recorded_per_call=None,
                          schedule=schedule(wait=0, warmup=1, active=1,
                                            repeat=1)) as prof:
                 for _ in range(2):  # the warm-up step, then the kept one
+                    before = wrapper.launches
                     for _ in range(calls):
                         fn()
                     torch.cuda.synchronize()
                     prof.step()
+                counted = wrapper.launches - before  # the kept step's
         except RuntimeError as exc:  # the profiler cannot trace this machine
             print(f"  profiler unavailable: {exc}")
             return None
         events = prof.key_averages()
-        if any(name in ev.key for ev in events for name in names):
+        recorded = {name: sum(ev.count for ev in events if name in ev.key)
+                    for name in names}
+        if recorded_per_call is not None:
+            recorded_per_call.update({name: n / calls
+                                      for name, n in recorded.items()})
+        if trace_complete(recorded, counted):
             break
-        print(f"  profiler session {session} of {sessions} recorded no launch "
-              f"of {' or '.join(names)} in {calls} calls")
+        print(f"  profiler session {session} of {sessions} recorded "
+              f"{recorded} launches in {calls} calls, where the wrapper "
+              f"counted {counted}: no device time from it")
+    else:
+        queued = time_queued_ms(fn, calls=calls)
+        print(f"  no complete trace of {' or '.join(names)}: {queued!r} ms a "
+              f"call queued on the card (queued time of the whole call, not "
+              f"a device time)")
+        return None
     per_call = None
     for name in names:
-        total_us, recorded = 0.0, 0
-        for ev in events:
-            if name in ev.key:
-                total_us += (getattr(ev, "device_time_total", None)
-                             or getattr(ev, "cuda_time_total", 0.0))
-                recorded += ev.count
-        if recorded_per_call is not None:
-            recorded_per_call[name] = recorded / calls
-        if recorded and recorded != calls:
-            print(f"  profiler recorded {recorded} launches of {name} in "
-                  f"{calls} calls")
+        total_us = sum((getattr(ev, "device_time_total", None)
+                        or getattr(ev, "cuda_time_total", 0.0))
+                       for ev in events if name in ev.key)
         if total_us > 0:
-            per_call = (per_call or 0.0) + total_us / recorded / 1e3
+            per_call = (per_call or 0.0) + total_us / counted / 1e3
             if len(names) > 1:
-                print(f"  {name}: {total_us / recorded / 1e3!r} ms a launch, "
-                      f"{recorded} launches recorded")
+                print(f"  {name}: {total_us / recorded[name] / 1e3!r} ms a "
+                      f"launch, {recorded[name]} launches recorded")
     if per_call is None:
-        print(f"  profiler recorded no launch of {' or '.join(names)} in "
-              f"{calls} calls")
+        print(f"  the profiler recorded no device time of "
+              f"{' or '.join(names)} in {calls} calls")
     return per_call
 
 
@@ -985,7 +1027,7 @@ def phase_segment_sum(device, reducer_inputs, launches):
 
             library = time_ms(index_add)
             in_turns = time_pair_ms(run, index_add)
-        dev_ms = kernel_device_ms(run, "segment_sum_")
+        dev_ms = kernel_device_ms(run, "segment_sum_", wrapper=segment_sum)
         queued = time_queued_ms(run)
         print(f"timing {label:32s} wrapper {ms!r} ms  kernel (device) "
               f"{dev_ms!r} ms  queued on the card (zero-fill, kernel and "
@@ -1069,22 +1111,27 @@ KERNEL_NAMES = {"segment_sum": ("segment_sum_",),
 def profile_breakdown(fn, label, top=8, warm=False):
     """Where one call of ``fn`` spends its time on the card: host wall,
     device busy share, the ``top`` kernels by device time, and each
-    kernel's launches and device time per call in place.  ``fn`` runs once
-    unprofiled first, unless ``warm`` (the caller has just run the same
-    call).  Returns those numbers ({"wall_ms", "busy_ms", "events",
-    "in_place": {kernel: ms per call}}), or None where the profiler
-    recorded no device activity."""
+    kernel's launches and device time per call in place, read only where
+    the trace holds every launch its wrapper counted in the call
+    (``trace_complete``).  ``fn`` runs once unprofiled first, unless
+    ``warm`` (the caller has just run the same call).  Returns those
+    numbers ({"wall_ms", "busy_ms", "events", "in_place": {kernel: ms per
+    call}, "partial": [kernels whose trace missed launches]}), or None
+    where the profiler recorded no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    wrappers = _wrappers()
     if not warm:
         fn()
     torch.cuda.synchronize()
+    before = {k: w.launches for k, w in wrappers.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
+    counted = {k: w.launches - before[k] for k, w in wrappers.items()}
     busy_us, n, by_name = device_activity(prof)
     if not n:
         print(f"profile {label}: wall {wall_us / 1e3!r} ms, device time not "
@@ -1092,7 +1139,7 @@ def profile_breakdown(fn, label, top=8, warm=False):
         return None
     total = sum(by_name.values())
     out = {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "events": n,
-           "in_place": {}}
+           "in_place": {}, "partial": []}
     print(f"profile {label}: wall {wall_us / 1e3!r} ms (profiled)  device busy "
           f"{busy_us / 1e3!r} ms  busy share {busy_us / wall_us!r}  device "
           f"events {n}")
@@ -1102,14 +1149,22 @@ def profile_breakdown(fn, label, top=8, warm=False):
         spans = {key: [e.time_range.elapsed_us() for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and key in e.name] for key in keys}
-        calls = max(len(v) for v in spans.values())  # each name once a call
+        recorded = {key: len(v) for key, v in spans.items()}
+        calls = counted[kernel]
+        if not calls and not any(recorded.values()):
+            continue
+        if not trace_complete(recorded, calls):
+            print(f"  in place: {kernel}: the trace recorded {recorded} "
+                  f"launches where the wrapper counted {calls}: no device "
+                  "time from this partial trace")
+            out["partial"].append(kernel)
+            continue
         us = sum(sum(v) for v in spans.values())
-        if calls:
-            print(f"  in place: {kernel} {calls} calls "
-                  f"({sum(len(v) for v in spans.values())} kernels), "
-                  f"{us / 1e3!r} ms ({us / total:.1%}), "
-                  f"{us / calls / 1e3!r} ms per call")
-            out["in_place"][kernel] = us / calls / 1e3
+        print(f"  in place: {kernel} {calls} calls "
+              f"({sum(recorded.values())} kernels), "
+              f"{us / 1e3!r} ms ({us / total:.1%}), "
+              f"{us / calls / 1e3!r} ms per call")
+        out["in_place"][kernel] = us / calls / 1e3
     return out
 
 
@@ -1170,6 +1225,13 @@ def _lm_kernels():
             "mamba_scan": mamba_scan, "moe_dispatch": moe_dispatch}
 
 
+def _wrappers():
+    """Every kernel wrapper by name, whose ``.launches`` count."""
+    from repro_torch.kernels.segment_reduce import segment_sum
+
+    return dict(_lm_kernels(), segment_sum=segment_sum)
+
+
 def expected_launches(cfg):
     """Launches of each LM kernel per admission (a prefill) and per decode
     step: attention prefills only, the recurrences and the MoE dispatch
@@ -1211,6 +1273,75 @@ def bf16_weights(device, cfg):
     return params
 
 
+def _record_model_calls(device, records):
+    """Wrap ``model.prefill`` and ``model.decode_step`` so that each call's
+    wall, whether its logits are finite, its T and its launches by LM
+    kernel go into ``records["prefill"]`` or ``records["decode"]``, and
+    the last decode call's arguments into ``records["last decode"]``.
+    Returns a function that unwraps."""
+    import torch
+    from repro_torch.models import model as M
+
+    kernels = _lm_kernels()
+    real = {"prefill": M.prefill, "decode": M.decode_step}
+
+    def timed(kind):
+        def run(*args, **kwargs):
+            _sync(device)
+            before = {k: w.launches for k, w in kernels.items()}
+            t0 = time.perf_counter()
+            logits, cache, aux = real[kind](*args, **kwargs)
+            finite = bool(torch.isfinite(logits).all())
+            _sync(device)
+            records.setdefault(kind, []).append({
+                "s": time.perf_counter() - t0, "finite": finite,
+                "T": int(args[2]["tokens"].shape[1]),
+                "launched": {k: w.launches - before[k]
+                             for k, w in kernels.items()}})
+            if kind == "decode":
+                records["last decode"] = (args, kwargs)
+            return logits, cache, aux
+        return run
+
+    M.prefill, M.decode_step = timed("prefill"), timed("decode")
+
+    def restore():
+        M.prefill, M.decode_step = real["prefill"], real["decode"]
+
+    return restore
+
+
+def _check_served(cfg, requests, done, new_tokens, records, launches):
+    """The serving checks: every request finished with ``new_tokens``
+    tokens in the vocabulary, every logit finite, one prefill a request,
+    and each prefill's and decode step's launches, and the run's, as
+    ``expected_launches`` gives."""
+    check(len(done) == len(requests),
+          f"{len(done)} of {len(requests)} requests finished")
+    for r in requests:
+        check(r.done and len(r.output) == new_tokens,
+              f"request {r.rid}: {len(r.output)} tokens, wanted {new_tokens}")
+        check(all(0 <= tok < cfg.vocab for tok in r.output),
+              f"request {r.rid}: a token outside [0, {cfg.vocab})")
+    pre, dec = records.get("prefill", []), records.get("decode", [])
+    check(all(x["finite"] for x in pre + dec), "a logit is not finite")
+    check(len(pre) == len(requests),
+          f"{len(pre)} prefills for {len(requests)} requests")
+    expect = expected_launches(cfg)
+    for kind, calls, col in (("prefill", pre, 0), ("decode step", dec, 1)):
+        want = {k: v[col] for k, v in expect.items()}
+        for x in calls:
+            check(x["launched"] == want,
+                  f"{kind} of {x['T']} tokens launched {x['launched']}, "
+                  f"wanted {want}")
+    for k, (per_admission, per_step) in expect.items():
+        total = per_admission * len(pre) + per_step * len(dec)
+        check(launches[k] == total,
+              f"{k}: {launches[k]} launches in the run, wanted {total}")
+        if per_admission:
+            check(launches[k] > 0, f"the serving path never launched {k}")
+
+
 def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
                   max_len=SERVE_MAX_LEN, new_tokens=SERVE_NEW, prompts=None,
                   fixed=SERVE_PROMPTS, phase="5", params=None, profiles=None):
@@ -1249,27 +1380,9 @@ def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
           f"{new_tokens} new tokens each")
 
     records = {"prefill": [], "decode": []}
-    real = {"prefill": M.prefill, "decode": M.decode_step}
-
-    def timed(kind):
-        def run(*args, **kwargs):
-            _sync(device)
-            before = {k: w.launches for k, w in kernels.items()}
-            t0 = time.perf_counter()
-            logits, cache, aux = real[kind](*args, **kwargs)
-            finite = bool(torch.isfinite(logits).all())
-            _sync(device)
-            records[kind].append({
-                "s": time.perf_counter() - t0, "finite": finite,
-                "T": int(args[2]["tokens"].shape[1]),
-                "launched": {k: w.launches - before[k]
-                             for k, w in kernels.items()}})
-            return logits, cache, aux
-        return run
-
     for r in reqs:
         eng.submit(r)
-    M.prefill, M.decode_step = timed("prefill"), timed("decode")
+    restore = _record_model_calls(device, records)
     try:
         for w in (*kernels.values(), segment_sum):
             w.launches = 0
@@ -1280,30 +1393,11 @@ def phase_serving(device, arch=SERVE_ARCH, cfg=None, slots=SERVE_SLOTS,
         launches = {k: w.launches for k, w in kernels.items()}
         launches["segment_sum"] = segment_sum.launches
     finally:
-        M.prefill, M.decode_step = real["prefill"], real["decode"]
+        restore()
 
-    check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} requests finished")
-    for r in reqs:
-        check(r.done and len(r.output) == new_tokens,
-              f"request {r.rid}: {len(r.output)} tokens, wanted {new_tokens}")
-        check(all(0 <= tok < cfg.vocab for tok in r.output),
-              f"request {r.rid}: a token outside [0, {cfg.vocab})")
-    pre, dec = records["prefill"], records["decode"]
-    check(all(x["finite"] for x in pre + dec), "a logit is not finite")
-    check(len(pre) == len(reqs), f"{len(pre)} prefills for {len(reqs)} requests")
-    for kind, calls, col in (("prefill", pre, 0), ("decode step", dec, 1)):
-        want = {k: v[col] for k, v in expect.items()}
-        for x in calls:
-            check(x["launched"] == want,
-                  f"{kind} of {x['T']} tokens launched {x['launched']}, "
-                  f"wanted {want}")
-    for k, (per_admission, per_step) in expect.items():
-        total = per_admission * len(pre) + per_step * len(dec)
-        check(launches[k] == total,
-              f"{k}: {launches[k]} launches in the run, wanted {total}")
-        if per_admission:
-            check(launches[k] > 0, f"the serving path never launched {k}")
+    _check_served(cfg, reqs, done, new_tokens, records, launches)
     check(launches["segment_sum"] == 0, "serving launched segment_sum")
+    pre, dec = records["prefill"], records["decode"]
     decode_s = sum(x["s"] for x in dec)
     decode_tokens = sum(len(r.output) - 1 for r in reqs)
     for x in pre:
@@ -1412,9 +1506,10 @@ def flash_bound_ms(q, k, causal, window, q_offset):
 
 def cuda_core_attention(q, k, v, causal=True, window=None, q_offset=0):
     """Attention on the CUDA-core kernel, in q's dtype, its C entry called
-    directly, so no launch is counted: the kernel that served the bf16
-    widths before the ``wgmma`` kernel (Phi-3's 96 among them; it keeps
-    the widths that are no multiple of 8) and float32 before the
+    directly, so no wrapper counts the launch (this function's
+    ``.launches`` does, for ``kernel_device_ms``): the kernel that served
+    the bf16 widths before the ``wgmma`` kernel (Phi-3's 96 among them; it
+    keeps the widths that are no multiple of 8) and float32 before the
     split-TF32 one (no path of the port reaches its float32 entry)."""
     import torch
     from repro_torch.kernels.flash_attention import _kernel
@@ -1429,7 +1524,11 @@ def cuda_core_attention(q, k, v, causal=True, window=None, q_offset=0):
         -1 if window is None else window, q_offset, Dh ** -0.5,
         torch.cuda.current_stream().cuda_stream)
     check(rc == 0, f"the CUDA-core flash_attention kernel failed: {rc}")
+    cuda_core_attention.launches += 1
     return out
+
+
+cuda_core_attention.launches = 0
 
 
 def sdpa_backend(sdpa, out, tried=("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
@@ -1492,7 +1591,8 @@ def flash_timings(q, k, v, window, sdpa, causal=True):
     times = {
         "ms": time_ms(run, runs=10, per_run=5),
         "kernel_device_ms": kernel_device_ms(
-            run, FLASH_F32 if f32 else "flash_attention_kernel", calls=5),
+            run, FLASH_F32 if f32 else "flash_attention_kernel",
+            wrapper=flash_attention, calls=5),
         "alone_ms": time_alone_ms(run),
         "queued_ms": time_queued_ms(run),
         "cuda_core_ms": time_ms(cuda_core, runs=3, per_run=3, warmup=1),
@@ -1900,7 +2000,8 @@ def phase_mamba_kernel(device, launches, lengths=(17, 2048, 3000),
         ms = time_ms(lambda: mamba_scan(*args), runs=10, per_run=5)
         # the bf16 prefill by CUDA events only, as rglru_scan's (phase 6a)
         dev_ms = (kernel_device_ms(lambda: mamba_scan(*args),
-                                   "mamba_scan_kernel", calls=5)
+                                   "mamba_scan_kernel", wrapper=mamba_scan,
+                                   calls=5)
                   if dtype == torch.float32 else None)
         queued = time_queued_ms(lambda: mamba_scan(*args))
         plain = time_ms(lambda: mamba_scan_ref(*args), runs=3, per_run=1,
@@ -1928,13 +2029,54 @@ def phase_mamba_kernel(device, launches, lengths=(17, 2048, 3000),
     return entry
 
 
+def _hidden_recorder(against=None):
+    """Wrap ``model._block_fwd`` so that each block's output is kept (a
+    copy), or, with ``against`` (the outputs a run kept so), compared with
+    that of the same call there: max |err| a call.  A forward calls the
+    blocks in layer order, so a call's index modulo the depth is its
+    layer.  Returns (the list, a function that unwraps)."""
+    from repro_torch.models import model as M
+
+    real, out = M._block_fwd, []
+
+    def block(*args, **kwargs):
+        x, new_cache, aux = real(*args, **kwargs)
+        h = x.detach()
+        out.append(h.clone() if against is None else
+                   float((h.float() - against[len(out)].float()).abs().max()))
+        return x, new_cache, aux
+
+    M._block_fwd = block
+
+    def restore():
+        M._block_fwd = real
+
+    return out, restore
+
+
+def print_layer_gaps(label, gaps, depth):
+    """Each layer's max |err| of the hidden state between two runs: the
+    prefill's, and the largest over the decode steps'."""
+    check(len(gaps) % depth == 0 and gaps,
+          f"{len(gaps)} block calls recorded for {depth} layers")
+    calls = [gaps[i:i + depth] for i in range(0, len(gaps), depth)]
+    print(f"{label}: hidden state max |err| by layer, prefill: {calls[0]!r}")
+    if len(calls) > 1:
+        print(f"{label}: hidden state max |err| by layer, largest over "
+              f"{len(calls) - 1} decode steps: "
+              f"{[max(c[i] for c in calls[1:]) for i in range(depth)]!r}")
+
+
 def phase_model_kernels_vs_plain(device, arch=SERVE_ARCH, depth=None, cfg=None,
                                  prompt_len=3000, max_len=SERVE_MAX_LEN,
-                                 steps=3, phase="6b"):
+                                 steps=3, phase="6b", params=None):
     """A full-width cut of ``arch`` to ``depth`` layers (default: one
     pattern group plus the tail), float32: prefill and decode logits with
     the kernels against the plain versions, on the same tokens (a
-    stub-frontend arch: the same seeded N(0, 1) ``embeds``)."""
+    stub-frontend arch: the same seeded N(0, 1) ``embeds``), each layer's
+    hidden-state gap printed; the kernel run launches exactly
+    ``expected_launches``' for one admission and ``steps`` decode steps.
+    ``params``: float32 weights of the cut (default: made from seed 2)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1947,9 +2089,12 @@ def phase_model_kernels_vs_plain(device, arch=SERVE_ARCH, depth=None, cfg=None,
     print(f"== phase {phase}: {cfg.name} at full width and depth {depth}, "
           "kernels against plain versions (float32)", flush=True)
     kernels = _lm_kernels()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(2)
-    params = M.init(cfg, gen, device=device, dtype=torch.float32)
+    if params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(2)
+        params = M.init(cfg, gen, device=device, dtype=torch.float32)
+    check(all(a.dtype == torch.float32 for a in _leaves(params)),
+          "the float32 cut's weights are not all float32")
     rng = np.random.default_rng(2)
     if cfg.frontend == "embed":
         prompt = {"embeds": torch.as_tensor(rng.standard_normal(
@@ -1962,26 +2107,35 @@ def phase_model_kernels_vs_plain(device, arch=SERVE_ARCH, depth=None, cfg=None,
             rng.integers(0, cfg.vocab, size=(1, prompt_len)), device=device)}
         feed = [{"tokens": torch.tensor([[int(tok)]], device=device)}
                 for tok in rng.integers(0, cfg.vocab, size=steps)]
+    expect = {k: a + steps * b for k, (a, b) in expected_launches(cfg).items()}
     atol, rtol = MODEL_TOL
-    out = {}
+    out, hidden = {}, None
     for use_kernels in (True, False):
-        before = sum(w.launches for w in kernels.values())
-        logits, cache, _ = M.prefill(cfg, params, prompt,
-                                     max_cache_len=max_len,
-                                     use_kernels=use_kernels)
-        # the prefill cache is float32 here, as the serving cache is, and
-        # padded to max_len: decode runs on it directly
-        outs = [logits]
-        for i, step in enumerate(feed):  # the same decode inputs
-            batch = dict(step, positions=torch.tensor([[prompt_len + i]],
-                                                      device=device))
-            outs.append(M.decode_step(cfg, params, batch, cache,
-                                      use_kernels=use_kernels)[0])
-        _sync(device)
-        launched = sum(w.launches for w in kernels.values()) - before
-        check((launched > 0) == use_kernels,
-              f"use_kernels={use_kernels}: {launched} kernel launches")
+        before = {k: w.launches for k, w in kernels.items()}
+        hidden, restore = _hidden_recorder(against=hidden)
+        try:
+            logits, cache, _ = M.prefill(cfg, params, prompt,
+                                         max_cache_len=max_len,
+                                         use_kernels=use_kernels)
+            # the prefill cache is float32 here, as the serving cache is,
+            # and padded to max_len: decode runs on it directly
+            outs = [logits]
+            for i, step in enumerate(feed):  # the same decode inputs
+                batch = dict(step, positions=torch.tensor(
+                    [[prompt_len + i]], device=device))
+                outs.append(M.decode_step(cfg, params, batch, cache,
+                                          use_kernels=use_kernels)[0])
+            _sync(device)
+        finally:
+            restore()
+        launched = {k: w.launches - before[k] for k, w in kernels.items()}
+        want = expect if use_kernels else dict.fromkeys(expect, 0)
+        check(launched == want, f"use_kernels={use_kernels}: launched "
+              f"{launched}, wanted {want}")
         out[use_kernels] = outs
+        del cache
+    print_layer_gaps(f"{cfg.name} depth {depth}, kernels vs plain", hidden,
+                     depth)
     for i, (got, want) in enumerate(zip(out[True], out[False])):
         label = "prefill" if i == 0 else f"decode step {i}"
         ok, err = _close(got, want, atol, rtol)
@@ -1990,7 +2144,6 @@ def phase_model_kernels_vs_plain(device, arch=SERVE_ARCH, depth=None, cfg=None,
         print(f"{cfg.name} depth {cfg.n_layers}, {label} logits "
               f"{tuple(got.shape)}: kernels vs plain max |err| {err!r} (atol "
               f"{atol}, rtol {rtol}; max |logit| {float(want.abs().max())!r})")
-    del params
 
 
 def moe_capacity(n_tokens, top_k, n_experts, capacity_factor):
@@ -2147,7 +2300,7 @@ def phase_moe_kernel(device, launches, prompt_len=3000, slots=SERVE_SLOTS,
             run = lambda: moe_dispatch(tokens, ids, slot_ids, n_experts, c)  # noqa: E731
             ms, lib_ms = time_ms(run), time_ms(library)
             in_turns = time_pair_ms(run, library)
-            dev_ms = kernel_device_ms(run, MOE_KERNELS)
+            dev_ms = kernel_device_ms(run, MOE_KERNELS, wrapper=moe_dispatch)
             queued = time_queued_ms(run)
             lib_queued = time_queued_ms(library)
             plain = time_ms(lambda: moe_dispatch_ref(tokens, ids, slot_ids,
@@ -2286,7 +2439,7 @@ def _kept(ids, cfg):
 
 def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
                     prompt_len=3000, max_len=SERVE_MAX_LEN, steps=3,
-                    phase="10b", walls=True):
+                    phase="10b", walls=True, params=None):
     """A full-width float32 cut of an MoE arch (Granite): (a) the
     moe_dispatch kernel against its plain version with the same attention,
     bit for bit; (b) all kernels against all plain versions: routing flips
@@ -2295,7 +2448,9 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
     flip moves other tokens' capacity slots, so a position whose own
     routing agreed may still see another token dropped); then, with
     ``walls``, the prefill's wall on the float32 attention kernel and
-    on the one before."""
+    on the one before.  Each layer's hidden-state gap between the held
+    run and the plain one is printed.  ``params``: float32 weights of the
+    cut (default: made from seed 2)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2309,20 +2464,27 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
     print(f"== phase {phase}: {cfg.name} at full width and depth {depth}, "
           "kernels against plain versions (float32)", flush=True)
     kernels = _lm_kernels()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(2)
-    params = M.init(cfg, gen, device=device, dtype=torch.float32)
+    if params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(2)
+        params = M.init(cfg, gen, device=device, dtype=torch.float32)
+    check(all(a.dtype == torch.float32 for a in _leaves(params)),
+          "the float32 cut's weights are not all float32")
     rng = np.random.default_rng(2)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, prompt_len)),
                              device=device)
     feed = rng.integers(0, cfg.vocab, size=steps)
+    hidden = {}
 
-    def run(use_kernels, force=None):
+    def run(use_kernels, force=None, keep=None):
         """(logits of the prefill and each decode step, routing per MoE
         call (sorted ids, and as chosen), launches by kernel); ``force``:
-        the routing each MoE call takes (``_routing_recorder``)."""
+        the routing each MoE call takes (``_routing_recorder``); ``keep``:
+        the key in ``hidden`` the blocks' outputs are kept under."""
         before = {k: w.launches for k, w in kernels.items()}
         calls, raw, restore = _routing_recorder(force)
+        recorded, unwrap = (_hidden_recorder() if keep
+                            else (None, lambda: None))
         try:
             logits, cache, _ = M.prefill(cfg, params, {"tokens": tokens},
                                          max_cache_len=max_len,
@@ -2337,11 +2499,14 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
             _sync(device)
         finally:
             restore()
+            unwrap()
+        if keep:
+            hidden[keep] = recorded
         return outs, (calls, raw), {k: w.launches - before[k]
                                     for k, w in kernels.items()}
 
     n_moe = expected_launches(cfg)["moe_dispatch"][0]
-    with_kernels, (routes_k, raw_k), launched = run(True)
+    with_kernels, (routes_k, raw_k), launched = run(True, keep="as run")
     check(launched["moe_dispatch"] == n_moe * (1 + steps)
           and launched["flash_attention"] == n_moe,
           f"kernel run launched {launched}")
@@ -2362,7 +2527,7 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
           "for bit")
     del plain_dispatch  # one set of logits less on the card
     # (b) every kernel against every plain version
-    plain, (routes_p, raw_p), launched = run(False)
+    plain, (routes_p, raw_p), launched = run(False, keep="plain")
     check(sum(launched.values()) == 0, f"plain run launched {launched}")
     # routing: one (N, k) record per MoE call, the prefill's depth first
     differ = [(a != b).any(dim=-1) for a, b in zip(routes_k, routes_p)]
@@ -2374,7 +2539,7 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
           f"{n_flips} of {n_choices} routing choices differ, over "
           f"{ROUTING_FLIPS_MAX:.0%}")
     atol, rtol = MODEL_TOL
-    held, how = with_kernels, "as run"
+    held, how, key = with_kernels, "as run", "as run"
     if n_flips:
         # a flip moves the capacity slots of the tokens after it on both
         # experts: one whose own routing agreed may be dropped or kept
@@ -2401,11 +2566,15 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
         # every choice pinned to the plain run's: the same tokens dropped
         # and kept, so every position is held
         del with_kernels
-        held, (routes_f, _), launched = run(True, force=raw_p)
+        held, (routes_f, _), launched = run(True, force=raw_p, keep="pinned")
         check(launched["flash_attention"] == n_moe
               and all(torch.equal(a, b) for a, b in zip(routes_f, routes_p)),
               f"the pinned run launched {launched} or routed otherwise")
-        how = "with the plain run's routing pinned"
+        how, key = "with the plain run's routing pinned", "pinned"
+    print_layer_gaps(f"{cfg.name} depth {depth}, kernels vs plain ({how})",
+                     [float((a.float() - b.float()).abs().max())
+                      for a, b in zip(hidden[key], hidden["plain"])], depth)
+    hidden.clear()
     for i, (got, want) in enumerate(zip(held, plain)):
         label = "prefill" if i == 0 else f"decode step {i}"
         ok, err = _close(got, want, atol, rtol)
@@ -2417,7 +2586,6 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
     del held
     del plain
     if not walls:
-        del params
         return
 
     # the float32 prefill end to end: its wall and flash_attention's device
@@ -2429,9 +2597,11 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
         _sync(device)
         return out
 
-    for label, attention, name in (("change", ops.flash_attention, FLASH_F32),
-                                   ("parent", cuda_core_attention,
-                                    FLASH_F32_BEFORE)):
+    for label, attention, name, counter in (
+            ("change", ops.flash_attention, FLASH_F32,
+             kernels["flash_attention"]),
+            ("parent", cuda_core_attention, FLASH_F32_BEFORE,
+             cuda_core_attention)):
         real = ops.flash_attention
         ops.flash_attention = attention
         try:
@@ -2442,7 +2612,7 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
                 prefill()
                 walls.append(time.perf_counter() - t)
             per_launch = {}
-            dev = kernel_device_ms(prefill, name, calls=1,
+            dev = kernel_device_ms(prefill, name, wrapper=counter, calls=1,
                                    recorded_per_call=per_launch)
             recorded = sum(per_launch.values())
         finally:
@@ -2453,7 +2623,6 @@ def phase_moe_model(device, arch=GRANITE_ARCH, depth=4, cfg=None,
               f"kernel ({name}): wall {statistics.median(walls)!r} s (runs "
               f"{walls!r}); flash_attention device {within!r} ms in "
               f"{recorded!r} launches ({dev!r} ms a launch)")
-    del params
 
 
 # ---------------------------------------------------------------------------
@@ -4690,7 +4859,8 @@ def rglru_profile_main(shapes: str) -> None:
               else torch.randn(b, width, generator=gen).to(device))
         per_name = {}
         dev_ms = kernel_device_ms(lambda: rglru_scan(x, a, h0), RGLRU_KERNELS,
-                                  calls=5, recorded_per_call=per_name)
+                                  wrapper=rglru_scan, calls=5,
+                                  recorded_per_call=per_name)
         result[label] = [per_name, dev_ms]
     print(json.dumps(result), flush=True)
 
@@ -5712,7 +5882,8 @@ def long_flash(device, cfg, t_len, in_place, seed=19):
             "ms": time_ms(run, runs=5, per_run=2, warmup=1),
             "kernel_device_ms": kernel_device_ms(
                 run, FLASH_F32 if dtype == torch.float32
-                else "flash_attention_kernel", calls=3),
+                else "flash_attention_kernel", wrapper=flash_attention,
+                calls=3),
             "queued_ms": time_queued_ms(run, calls=5),
             "plain_ms": plain_ms, "plain_rows": LONG_ROWS,
             "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err, **lib}
@@ -5780,7 +5951,8 @@ def long_rglru(device, width, t_len, in_place, seed=19):
         bound, bound_by = rglru_bound_ms(xs, True)
         times = {"ms": time_ms(run, runs=10, per_run=5),
                  "kernel_device_ms": kernel_device_ms(
-                     run, RGLRU_KERNELS, calls=5, recorded_per_call=per_name),
+                     run, RGLRU_KERNELS, wrapper=rglru_scan, calls=5,
+                     recorded_per_call=per_name),
                  "queued_ms": time_queued_ms(run, calls=5),
                  "recorded_launches_per_call": per_name,
                  "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
@@ -5862,8 +6034,8 @@ def long_mamba(device, d_inner, d_state, t_len, in_place, seed=19):
         bound, bound_by, sfu = mamba_bound_ms(1, t_len, d_inner, d_state,
                                               args[0].element_size(), 2, True)
         times = {"ms": time_ms(run, runs=10, per_run=5),
-                 "kernel_device_ms": kernel_device_ms(run, "mamba_scan_kernel",
-                                                      calls=5),
+                 "kernel_device_ms": kernel_device_ms(
+                     run, "mamba_scan_kernel", wrapper=mamba_scan, calls=5),
                  "queued_ms": time_queued_ms(run, calls=5),
                  "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                  "exp_sfu_ms": sfu, "max_abs_err": max(err_y, err_h),
@@ -5926,7 +6098,8 @@ def long_moe(device, cfg, t_len, in_place, seed=19):
         bound, bound_by = moe_bound_ms(kept, tokens.shape[0], d, e, c,
                                        toks.element_size())
         times = {"ms": time_ms(run, runs=10, per_run=5),
-                 "kernel_device_ms": kernel_device_ms(run, MOE_KERNELS, calls=5),
+                 "kernel_device_ms": kernel_device_ms(
+                     run, MOE_KERNELS, wrapper=moe_dispatch, calls=5),
                  "queued_ms": time_queued_ms(run, calls=5),
                  "plain_ms": plain_ms,
                  "library_ms": time_ms(library, runs=10, per_run=5),
@@ -6117,6 +6290,247 @@ def phase_long_context(device, phase, arch, cut_depth, params=None):
     return {"arch": arch, "launches": launches, "kernels": kernels, "s": s}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the reference's default serving dtype at full width and depth
+# ---------------------------------------------------------------------------
+
+#: (sub-phase, arch, the full-depth hold's prompt): Falcon-Mamba's is
+#: shorter, as its plain scan at 3000 tokens would take 64 x 0.73 s (phase
+#: 8b holds the 3000-token prompt at depth 4)
+FLOAT32_ARCHS = (("20a", SERVE_ARCH, 3000), ("20b", MAMBA_ARCH, 512),
+                 ("20c", GRANITE_ARCH, 3000), ("20d", "qwen3-1.7b", 3000))
+#: the profiled float32 prefill's prompt: the longest that phases 5, 7 and
+#: 9 serve
+FLOAT32_PREFILL = 3000
+#: the C entry of each LM kernel's float32 route
+FLOAT32_ENTRIES = {"flash_attention": "flash_attention_f32_tc",
+                   "rglru_scan": "rglru_scan_f32",
+                   "mamba_scan": "mamba_scan_f32",
+                   "moe_dispatch": "moe_dispatch_f32"}
+#: the launcher's defaults, the reference's (src/repro/launch/serve.py):
+#: 8 requests of 4-23 tokens, 16 new tokens each, 4 slots, max_len 256
+LAUNCHER_REQUESTS, LAUNCHER_NEW = 8, 16
+
+
+def _c_entry_recorder():
+    """Record the C entry each LM kernel launch resolves: a launch calls
+    its module's ``_kernel`` once, with the entry's name
+    (``flash_attention``) or the dtype that picks it (``_ENTRY``, the
+    others).  Returns ({kernel: [entry, ...]}, a function that
+    unwraps)."""
+    import importlib
+
+    seen, real = {}, {}
+    for name in LM_KERNELS:
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        real[name], seen[name] = mod._kernel, []
+
+        def kernel(key, mod=mod, resolve=mod._kernel, log=seen[name]):
+            log.append(key if isinstance(key, str) else mod._ENTRY[key])
+            return resolve(key)
+
+        mod._kernel = kernel
+
+    def restore():
+        for name, fn in real.items():
+            importlib.import_module(f"repro_torch.kernels.{name}")._kernel = fn
+
+    return seen, restore
+
+
+def _float32_matmuls() -> None:
+    """Fail unless float32 matmuls are float32: a TF32 GEMM would move the
+    reference's numbers by about 1e-3, unseen."""
+    import torch
+
+    precision = torch.get_float32_matmul_precision()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    check(precision == "highest" and not tf32, f"float32 matmul precision "
+          f"{precision!r}, allow_tf32 {tf32}: want 'highest' and False")
+
+
+def phase_float32_launcher(device, arch, phase="20a"):
+    """``repro_torch.launch.serve.main(["--arch", arch])``, the reference
+    launcher's command as a user runs it: float32 (no ``--dtype``), full
+    width and depth, the launcher's own seeded weights and requests.
+    Checks the requests' tokens, every logit the engine saw, the launches
+    of each admission and decode step against ``expected_launches``, the
+    C entry of every launch (``FLOAT32_ENTRIES``), float32 matmuls without
+    TF32, and the init and serving peaks; prints the tokens/s, decode
+    steps, the wall and a profiled decode step.  Returns (the launcher's
+    weights, kept through a wrapper of ``model.init``, the run's launches
+    by kernel, its numbers)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    argv = ["--arch", arch]
+    print(f"== phase {phase}: python -m repro_torch.launch.serve "
+          f"{' '.join(argv)} (float32, the launcher's defaults) at full width "
+          "and depth", flush=True)
+    _float32_matmuls()
+    kernels = _lm_kernels()
+    made, records = {}, {"prefill": [], "decode": []}
+    real_init = M.init
+
+    def init(*args, **kwargs):
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        made["params"] = real_init(*args, **kwargs)
+        _sync(device)
+        made["s"] = time.perf_counter() - t
+        if device.type == "cuda":
+            made["peak"] = torch.cuda.max_memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        return made["params"]
+
+    entries, unwrap = _c_entry_recorder()
+    restore = _record_model_calls(device, records)
+    M.init = init
+    try:
+        for w in kernels.values():
+            w.launches = 0
+        t = time.perf_counter()
+        done = launcher.main(argv)
+        _sync(device)
+        wall = time.perf_counter() - t
+        launches = {k: w.launches for k, w in kernels.items()}
+    finally:
+        M.init = real_init
+        restore()
+        unwrap()
+    _float32_matmuls()
+    params = made.pop("params")
+    n_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    check(all(a.dtype == torch.float32 for a in _leaves(params)),
+          "the launcher's weights are not all float32")
+    serving_peak = (torch.cuda.max_memory_allocated(device)
+                    if device.type == "cuda" else 0)
+    init_peak = made.get("peak", 0)
+    print(f"init: {n_bytes / 1e9:.3f} GB of float32 weights in "
+          f"{made['s']:.3f} s; init peak device memory {init_peak / 1e9!r} "
+          f"GB; serving peak {serving_peak / 1e9!r} GB")
+    for what, peak in (("init", init_peak), ("serving", serving_peak)):
+        check(peak < CARD_BYTES, f"{what} peak device memory {peak / 1e9} GB "
+              f"over {CARD_BYTES / 1e9} GB")
+    check(len(done) == LAUNCHER_REQUESTS,
+          f"{len(done)} of {LAUNCHER_REQUESTS} requests finished")
+    _check_served(cfg, done, done, LAUNCHER_NEW, records, launches)
+    for k, n in launches.items():
+        check(entries[k] == [FLOAT32_ENTRIES[k]] * n,
+              f"{k}: the launches resolved {sorted(set(entries[k]))} "
+              f"({len(entries[k])} launches), wanted {FLOAT32_ENTRIES[k]} "
+              f"{n} times")
+    pre, dec = records["prefill"], records["decode"]
+    decode_s = sum(x["s"] for x in dec)
+    tokens = sum(len(r.output) for r in done)
+    step_ms = sorted(x["s"] * 1e3 for x in dec)
+    print(f"{cfg.name} float32 through the launcher: {len(done)} requests, "
+          f"{tokens} tokens in {wall!r} s ({tokens / wall!r} tokens/s end to "
+          f"end); {len(dec)} decode steps, "
+          f"{(tokens - len(done)) / decode_s!r} tokens/s while decoding, "
+          f"{statistics.median(step_ms)!r} ms/step median (first "
+          f"{dec[0]['s'] * 1e3!r}, range {step_ms[0]!r}-{step_ms[-1]!r}); "
+          f"prefills {[round(x['s'], 4) for x in pre]} s at T "
+          f"{[x['T'] for x in pre]}; launches {launches}, every one on "
+          f"{sorted({FLOAT32_ENTRIES[k] for k, n in launches.items() if n})}")
+    numbers = {"wall_s": wall, "tokens_per_s": tokens / wall,
+               "decode_steps": len(dec),
+               "ms_per_step": statistics.median(step_ms),
+               "init_peak_gb": init_peak / 1e9,
+               "serving_peak_gb": serving_peak / 1e9,
+               "weights_gb": n_bytes / 1e9}
+    if device.type == "cuda":
+        args, kwargs = records.pop("last decode")
+        profile = profile_breakdown(lambda: M.decode_step(*args, **kwargs),
+                                    f"decode step ({args[2]['tokens'].shape[0]}"
+                                    " slots, float32)", warm=True)
+        if profile:
+            numbers["decode_busy_ms"] = profile["busy_ms"]
+            numbers["decode_busy_share"] = profile["busy_ms"] / profile["wall_ms"]
+    return params, launches, numbers
+
+
+def phase_float32_serving(device, phase, arch, prompt_len, hand_on=False):
+    """Phase 20 for one arch: the launcher at its defaults in float32
+    (``phase_float32_launcher``), then the full-depth float32 hold on its
+    weights, kernels against plain versions (``phase_model_kernels_vs_plain``;
+    Granite ``phase_moe_model``, phase 10b's routing rule), then the
+    kernels' prefill of ``FLOAT32_PREFILL`` seeded tokens as the engine
+    runs it (only row T-1 unembedded), profiled: busy ms and share, top
+    operations, each LM kernel's device ms in place.  With ``hand_on``, the weights' bfloat16 cast, which
+    equals ``bf16_weights``' bit for bit (the same seeded float32 draws,
+    cast), is returned for the bf16 phases; the float32 weights are freed.
+    Returns {"arch", "launches", "numbers", "s", "bf16"}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    t = time.perf_counter()
+    cfg = get_config(arch)
+    params, launches, numbers = phase_float32_launcher(device, arch, phase)
+    free_device_memory(device)
+    hold = dict(cfg=cfg, depth=cfg.n_layers, prompt_len=prompt_len,
+                params=params, phase=f"{phase} hold")
+    if cfg.n_experts:
+        phase_moe_model(device, walls=False, **hold)
+    else:
+        phase_model_kernels_vs_plain(device, **hold)
+    free_device_memory(device)
+    if device.type == "cuda":
+        kernels = _lm_kernels()
+        prompt = {"tokens": torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab, size=(1, FLOAT32_PREFILL)), device=device)}
+
+        def prefill():
+            out = M.prefill(cfg, params, prompt, max_cache_len=SERVE_MAX_LEN,
+                            use_kernels=True, last_only=True)
+            _sync(device)
+            return out
+
+        prefill()  # its first call with last_only
+        t0 = time.perf_counter()
+        prefill()
+        numbers["prefill_s"] = time.perf_counter() - t0
+        profile = profile_breakdown(
+            prefill, f"{cfg.name} float32 prefill of {FLOAT32_PREFILL} "
+            "tokens (kernels on, row T-1 unembedded)", warm=True) or {}
+        in_place = dict(profile.get("in_place", {}))
+        for name in profile.get("partial", []):
+            # a partial trace: the kernel's device time from sessions of
+            # their own, or its queued time printed
+            in_place[name] = kernel_device_ms(
+                prefill, KERNEL_NAMES[name], wrapper=kernels[name], calls=1)
+        numbers.update(prefill_busy_ms=profile.get("busy_ms"),
+                       prefill_wall_profiled_ms=profile.get("wall_ms"),
+                       in_place_ms={k: v for k, v in in_place.items()
+                                    if launches.get(k)})
+        print(f"{cfg.name} float32 {FLOAT32_PREFILL}-token prefill (kernels on): "
+              f"wall {numbers['prefill_s']!r} s; each LM kernel's device ms "
+              f"a launch in place {numbers['in_place_ms']}")
+    bf16 = None
+    if hand_on:
+        bf16 = M.cast_params(params, torch.bfloat16)
+        # the first leaf drawn, the embedding, against a fresh bf16 draw
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        check(torch.equal(bf16["embed"], L._normal(
+            gen, (cfg.vocab, cfg.d_model), 0.02, torch.bfloat16)),
+            "the float32 weights' bf16 cast differs from a bf16 init")
+    del params
+    free_device_memory(device)
+    s = time.perf_counter() - t
+    print(f"phase {phase} ({arch}): {s:.1f} s", flush=True)
+    return {"arch": arch, "launches": launches, "numbers": numbers, "s": s,
+            "bf16": bf16}
+
+
 def free_device_memory(device) -> None:
     """Return what the finished phases held to the card; print the run's
     wall so far."""
@@ -6151,19 +6565,21 @@ def main() -> None:
     phase_batched_solver(device)
     solver_device_share(device)
     free_device_memory(device)
-    # each serving phase's weights serve its arch's long shapes (phase 19)
-    # next, through params=, before they are freed
-    from repro_torch.configs import get_config
-
-    weights = bf16_weights(device, get_config(SERVE_ARCH))
+    # phase 20 serves each arch in float32 through the launcher on its own
+    # seeded weights, whose bf16 cast (equal to bf16_weights') then serves
+    # phase 5, 7 or 9 and the arch's long shapes (phase 19) before it is
+    # freed; 20a's full-depth hold takes the place of phase 6b's cut
+    f32 = {"20a": phase_float32_serving(device, *FLOAT32_ARCHS[0],
+                                        hand_on=True)}
+    weights = f32["20a"].pop("bf16")
     served = phase_serving(device, params=weights)
     long = {"19a": phase_long_context(device, *LONG_ARCHS[0], params=weights)}
     del weights
     free_device_memory(device)
     entries += phase_lm_kernels(device, served)
-    phase_model_kernels_vs_plain(device)
     free_device_memory(device)
-    weights = bf16_weights(device, get_config(MAMBA_ARCH))
+    f32["20b"] = phase_float32_serving(device, *FLOAT32_ARCHS[1], hand_on=True)
+    weights = f32["20b"].pop("bf16")
     served = phase_serving(device, MAMBA_ARCH, fixed=MAMBA_PROMPTS, phase="7",
                            params=weights)
     long["19b"] = phase_long_context(device, *LONG_ARCHS[1], params=weights)
@@ -6172,7 +6588,8 @@ def main() -> None:
     entries.append(phase_mamba_kernel(device, served))
     phase_model_kernels_vs_plain(device, MAMBA_ARCH, depth=4, phase="8b")
     free_device_memory(device)
-    weights = bf16_weights(device, get_config(GRANITE_ARCH))
+    f32["20c"] = phase_float32_serving(device, *FLOAT32_ARCHS[2], hand_on=True)
+    weights = f32["20c"].pop("bf16")
     granite = phase_serving(device, GRANITE_ARCH, fixed=GRANITE_PROMPTS,
                             phase="9", params=weights)
     long["19c"] = phase_long_context(device, *LONG_ARCHS[2], params=weights)
@@ -6182,6 +6599,7 @@ def main() -> None:
     entries.append(moe)
     phase_moe_model(device)
     free_device_memory(device)
+    f32["20d"] = phase_float32_serving(device, *FLOAT32_ARCHS[3])
     phase_training(device)
     free_device_memory(device)
     phase_training_float32_cut(device)
@@ -6277,6 +6695,19 @@ def main() -> None:
             e["max_abs_err"] = max(e["max_abs_err"], numbers["max_abs_err"])
     print(f"phase 19: {sum(r['s'] for r in long.values()):.1f} s ("
           + ", ".join(f"{p} {r['s']:.1f} s" for p, r in long.items())
+          + f") on {card_name_and_limit()}", flush=True)
+    # phase 20: the launcher's float32 serving launches of each arch
+    for phase, r in f32.items():
+        for name, n in r["launches"].items():
+            if n:
+                e = by_name[name]
+                e.setdefault("launches_by_path", {"serving": e["launches"]})
+                e["launches_by_path"][f"{r['arch']} float32 (20)"] = n
+                e["launches"] += n
+                e.setdefault("float32_in_place_ms", {})[r["arch"]] = \
+                    r["numbers"].get("in_place_ms", {}).get(name)
+    print(f"phase 20: {sum(r['s'] for r in f32.values()):.1f} s ("
+          + ", ".join(f"{p} {r['s']:.1f} s" for p, r in f32.items())
           + f") on {card_name_and_limit()}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")

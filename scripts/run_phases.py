@@ -23,7 +23,11 @@ widths off the 64-column grid (which the whole script runs before 18a),
 ``19`` the reference's long shapes (``19a`` RecurrentGemma-9B, ``19b``
 Falcon-Mamba-7B, ``19c`` Granite-MoE-3B-A800M, each alone; each makes
 its own weights, where the whole script reuses those of phases 5, 7 and
-9), after phase 1 (the card's name and
+9), ``20`` the reference's default serving dtype, float32, at full width
+and depth through ``repro_torch.launch.serve`` and a full-depth hold of
+the kernels against their plain versions (``20a`` RecurrentGemma-9B,
+``20b`` Falcon-Mamba-7B, ``20c`` Granite-MoE-3B-A800M, ``20d``
+Qwen3-1.7B, each alone), after phase 1 (the card's name and
 power limit, and the kernels built).  Phases 6a, 8a and 10a run on
 stand-in launch counts (they print their kernels-line entries).  Needs a
 CUDA card.
@@ -39,7 +43,7 @@ ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
 ap.add_argument("phases", nargs="+", choices=[
     "5", "6a", "7", "8a", "10a", "10b", "14", "15", "16", "17", "18",
     "18w", "18a", "18b", "18c", "18d", "18e", "18f", "19", "19a", "19b",
-    "19c"])
+    "19c", "20", "20a", "20b", "20c", "20d"])
 args = ap.parse_args()
 tree = Path(args.tree).resolve()
 sys.path[:0] = [str(tree), str(tree / "src")]
@@ -91,6 +95,14 @@ for phase in args.phases:
                 print(json.dumps(C.phase_long_context(device, *spec),
                                  default=str))
                 C.free_device_memory(device)
+    elif phase.startswith("20"):
+        for spec in C.FLOAT32_ARCHS:
+            if phase in ("20", spec[0]):
+                r = C.phase_float32_serving(device, *spec)
+                print(json.dumps({k: r[k] for k in ("arch", "launches",
+                                                    "numbers", "s")}))
+                print(f"phase {spec[0]}: {r['s']:.1f} s on "
+                      f"{C.card_name_and_limit()}", flush=True)
     else:
         print(json.dumps(C.phase_dryrun(device)[1], default=str))
     C.free_device_memory(device)
