@@ -127,7 +127,7 @@ Phases:
     Zipf(1.4) corpus with 35% of its input at sources g and g+4 and 5% at
     the other six, calibrated, planned through ``GeoSchedule`` by
     ``independent``, ``sequential`` and ``joint`` (and ``joint`` under
-    ``min_max_slowdown``) at 24 x 250, simulated and executed: word counts
+    ``min_max_slowdown``) at 24 x 50, simulated and executed: word counts
     exact, every non-empty reducer of every job launching ``segment_sum``
     (counted from 0), every plan valid, joint's modeled aggregate no worse
     than independent's, the fair objective's worst slowdown no worse than
@@ -152,7 +152,7 @@ Phases:
     chain through ``GeoPipeline`` on phase 2's corpus (stage 0 counts the
     words, stages 1 and 2 count the low 20 bits of the counts before),
     its downstream alphas and out_scales measured by one uniform-plan
-    probe run; planned ``stagewise`` and ``end_to_end`` at 24 x 250,
+    probe run; planned ``stagewise`` and ``end_to_end`` at 24 x 50,
     simulated and executed: every stage's outputs equal numpy's chain,
     every non-empty reducer of every stage launches ``segment_sum``
     (counted from 0), every plan valid, ``end_to_end`` no worse modeled,
@@ -310,6 +310,27 @@ Phases:
     gap printed; then the prefill as the engine runs it, profiled.  The
     weights' bf16 cast, which equals ``bf16_weights``' bit for bit, serves
     phases 5, 7 and 9 and their long shapes (19).
+21. Training through the reference's launcher on the three block families
+    no earlier phase trains (after phase 11), each at full width, the card's
+    memory freed between them (``TRAIN_ARCHS``): 21a Granite-MoE-3B-A800M
+    at full depth (the MoE FFN: router, top-8 gates, capacity drops,
+    dispatch and combine, z-loss), 21b Falcon-Mamba-7B at 24 of 64 layers
+    with ``--remat`` (the Mamba block), 21c RecurrentGemma-9B at 8 of 38
+    (two RG-LRU, RG-LRU, local attention groups and the RG-LRU tail).  Each
+    calls ``repro_torch.launch.train.main`` at the reference launcher's
+    defaults (``--batch 8 --seq 128 --lr 3e-4``, float32) for 6 steps after
+    2 warm-up steps, its config cut by depth alone: the step's bytes are
+    reckoned from the config first (``train_bytes``: state, AdamW's
+    temporaries, logits, kept activations) and must be under 80 GB; every
+    loss and grad norm finite, the mean of the last two losses below the
+    first, the peak under 80 GB, no LM kernel launched (counted from 0);
+    the init's wall, step walls, tokens/s and the peak printed.  21d: each
+    arch's float32 cut, loss and every gradient on the card against the
+    CPU at B = 1, T = 128 and phase 11b's bars (Granite and Falcon-Mamba
+    at depth 2, RecurrentGemma at depth 3 without the tail: one group, one
+    local attention layer), Granite's (token, layer) routing choices that
+    differ between the two counted, and where any do, held with the CPU
+    run's choices pinned on both sides.
 
 After the phases, one ``{"kernels": [...]}`` line lists every kernel; the
 scans' entries time the float32 prefill inputs the bf16 models now give
@@ -409,12 +430,13 @@ SCHED_POLICIES = (("independent", "makespan"), ("sequential", "makespan"),
                   ("joint", "makespan"), ("joint", "min_max_slowdown"))
 ONLINE_RESTARTS, ONLINE_STEPS = 8, 50
 #: the schedules' and pipelines' plans (phases 12 and 13): the paper's 24
-#: restarts at a fifth of its 500 steps, and run_online (above) at a
-#: quarter of its default 200 steps.  The solves are host-bound, their
-#: walls in proportion to the steps; their checks hold by construction at
-#: any count.  The main path (phase 2) and the batched solver (phase 4)
-#: keep 24 x 500.
-SCHED_RESTARTS, SCHED_STEPS = 24, 100
+#: restarts at a tenth of its 500 steps (so that a slow host's whole run,
+#: phase 21's training included, stays under 1150 s), and run_online
+#: (above) at a quarter of its default 200 steps.  The solves are
+#: host-bound, their walls in proportion to the steps; their checks hold
+#: by construction at any count.  The main path (phase 2) and the batched
+#: solver (phase 4) keep 24 x 500.
+SCHED_RESTARTS, SCHED_STEPS = 24, 50
 #: pipelines (phase 13): a 3-stage word-count chain, each stage after the
 #: first counting the counts of the one before (its map keeps the low 20
 #: bits of a value, as word count's does); the example's pipeline_pair
@@ -2850,10 +2872,17 @@ def _grads(cfg, params, batch):
 
 
 def phase_training_float32_cut(device, arch=TRAIN_ARCH, depth=2, seq=256,
-                               reduced=False, phase="11b"):
-    """Phase 11b: a full-width cut of ``arch`` to ``depth`` layers, float32
-    (no TF32): ``loss_fn`` and every gradient on the card against the same
-    on the CPU.  A stub-frontend arch takes seeded N(0, 1) ``embeds``."""
+                               reduced=False, phase="11b", cfg=None):
+    """Phase 11b: a full-width cut of ``arch`` (or of ``cfg``, taken as
+    given) to ``depth`` layers, float32 (no TF32): ``loss_fn`` and every
+    gradient on the card against the same on the CPU.  A stub-frontend
+    arch takes seeded N(0, 1) ``embeds``.  For an MoE arch the (token,
+    layer) routing choices that differ between the card and the CPU are
+    counted and printed; where any differ, loss and gradients are held
+    with the CPU run's choices pinned on both sides (phase 10b's rule: a
+    flipped choice moves other tokens' capacity slots).  Returns (the
+    worst gradient gap, relative to its leaf's largest entry; the routing
+    flips, None without experts)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2861,11 +2890,12 @@ def phase_training_float32_cut(device, arch=TRAIN_ARCH, depth=2, seq=256,
     from repro_torch.models import model as M
 
     torch.set_float32_matmul_precision("highest")
-    base = get_config(arch).reduced() if reduced else get_config(arch)
+    base = cfg or (get_config(arch).reduced() if reduced else get_config(arch))
     cfg = dataclasses.replace(base, n_layers=depth)
-    print(f"== phase {phase}: {cfg.name} at full width and depth {depth}, loss "
-          f"and gradients on the card against the CPU (float32, B=1, T={seq})",
-          flush=True)
+    print(f"== phase {phase}: {cfg.name} at full width and depth {depth} "
+          f"({cfg.n_groups} x {len(cfg.pattern)} and a tail of "
+          f"{len(cfg.tail)}), loss and gradients on the card against the "
+          f"CPU (float32, B=1, T={seq})", flush=True)
     params = M.init(cfg, torch.Generator(device=device).manual_seed(3),
                     device=device)
     rng = np.random.default_rng(3)
@@ -2876,29 +2906,66 @@ def phase_training_float32_cut(device, arch=TRAIN_ARCH, depth=2, seq=256,
         batch["embeds"] = torch.from_numpy(rng.standard_normal(
             (1, seq, cfg.d_model), dtype=np.float32))
     on_card = {k: v.to(device) for k, v in batch.items()}
-    loss, grads = _grads(cfg, params, on_card)
+
+    def routed_grads(params, batch, force=None):
+        """``_grads`` and each MoE call's top-k ids (sorted, and as
+        chosen), or those of ``force`` taken (``_routing_recorder``)."""
+        calls, raw, restore = _routing_recorder(force)
+        try:
+            return (*_grads(cfg, params, batch), calls, raw)
+        finally:
+            restore()
+
+    t = time.perf_counter()
+    loss, grads, routes, _ = routed_grads(params, on_card)
+    _sync(device)
+    walls = {"card": time.perf_counter() - t}
+    t = time.perf_counter()
     cpu = torch.device("cpu")
-    want_loss, want = _grads(cfg, M.cast_params(params, torch.float32, cpu),
-                             batch)
+    cpu_params = M.cast_params(params, torch.float32, cpu)
+    walls["copy"] = time.perf_counter() - t
+    t = time.perf_counter()
+    want_loss, want, want_routes, chosen = routed_grads(cpu_params, batch)
+    walls["cpu"] = time.perf_counter() - t
+    flips, how = None, ""
+    if cfg.n_experts:
+        differ = [(a.cpu() != b).any(dim=-1)
+                  for a, b in zip(routes, want_routes)]
+        flips = int(sum(int(x.sum()) for x in differ))
+        print(f"routing: {flips} of {sum(x.numel() for x in differ)} (token, "
+              "layer) choices differ between the card and the CPU")
+        if flips:
+            del grads
+            loss, grads, *_ = routed_grads(
+                params, on_card, [r.to(device) for r in chosen])
+            want_loss, want, *_ = routed_grads(cpu_params, batch, chosen)
+            how = " (the CPU run's routing pinned on both sides)"
     check(bool(torch.isfinite(loss)) and abs(float(loss) - float(want_loss))
           <= TRAIN_LOSS_RTOL * abs(float(want_loss)),
-          f"loss {float(loss)} on the card, {float(want_loss)} on the CPU")
+          f"loss {float(loss)} on the card, {float(want_loss)} on the CPU{how}")
+    t = time.perf_counter()
     worst = 0.0
     for path, g in grads.items():
         w = want[path]
         if w is None or g is None:
             check(w is None and g is None, f"{path}: reached on one side only")
             continue
+        # held on the card: float32 differences, magnitudes and maxima are
+        # exact, so the numbers are the CPU's
+        w = w.to(g.device)
         scale = float(w.abs().max())
-        err = float((g.cpu() - w).abs().max())
+        err = float((g - w).abs().max())
         check(err <= TRAIN_GRAD_TOL * scale,
               f"{'/'.join(path)}: gradient max |err| {err} over "
-              f"{TRAIN_GRAD_TOL} x {scale}")
+              f"{TRAIN_GRAD_TOL} x {scale}{how}")
         worst = max(worst, err / scale)
+    walls["held"] = time.perf_counter() - t
     print(f"loss card {float(loss)!r} cpu {float(want_loss)!r} (rtol "
           f"{TRAIN_LOSS_RTOL}); {len(grads)} gradient leaves, worst max |err| "
-          f"{worst!r} of the leaf's largest entry (bar {TRAIN_GRAD_TOL})")
+          f"{worst!r} of the leaf's largest entry (bar {TRAIN_GRAD_TOL}){how}; "
+          "walls (s): " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
     del params, grads
+    return worst, flips
 
 
 def phase_checkpoint_resume(device, arch=TRAIN_ARCH):
@@ -6531,6 +6598,285 @@ def phase_float32_serving(device, phase, arch, prompt_len, hand_on=False):
             "bf16": bf16}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the reference's training launcher on the block families no
+# earlier phase trains
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainArch:
+    """One arch of phase 21: the layers trained (``depth``, None for all),
+    whether the launcher runs with ``--remat``, and the float32 cut's
+    depth and whether it keeps the arch's tail."""
+
+    phase: str
+    arch: str
+    depth: int | None
+    remat: bool
+    cut_depth: int
+    cut_tail: bool = True
+
+
+#: the three archs at full width, each at the deepest whole-group depth
+#: whose reckoning (``train_bytes``) stays under the card.  Granite-MoE
+#: trains whole.  Falcon-Mamba (116 GB of state whole) trains 24 of 64
+#: layers with remat: without it the plain scan's per-step (B, d_inner,
+#: d_state) float32 tensors kept for the backward (1.7 GB a layer) would
+#: take the run past the card.  RecurrentGemma (153 GB whole) trains 8 of
+#: 38 layers: two (RG-LRU, RG-LRU, local attention) groups and the RG-LRU
+#: tail; its float32 cut is one whole group without the tail, so that it
+#: holds a local attention layer
+TRAIN_ARCHS = (
+    TrainArch("21a", GRANITE_ARCH, None, False, 2),
+    TrainArch("21b", MAMBA_ARCH, 24, True, 2),
+    TrainArch("21c", SERVE_ARCH, 8, False, 3, cut_tail=False),
+)
+#: the reference launcher's defaults (``--batch 8 --seq 128 --lr 3e-4``,
+#: float32, no remat: src/repro/launch/train.py), 6 steps with phase 11a's
+#: 2 warm-up steps, so that the loss can fall in them.  Falcon-Mamba's
+#: host-bound steps (4.1-7.1 s each on an H100's hosts) took a slow host's
+#: whole run past 1150 s at 8; at 6 the mean of its last two losses is
+#: still 0.7 below the first (11.66; 10.05 and 11.80)
+TRAIN_ARCH_BATCH, TRAIN_ARCH_SEQ, TRAIN_ARCH_LR = 8, 128, "3e-4"
+TRAIN_ARCH_STEPS, TRAIN_ARCH_WARMUP = 6, 2
+#: bytes that autograd keeps a token in float32 for each pattern group and
+#: for the tail (remat off), traced at full width from ``loss_fn``'s
+#: forward on meta stand-ins by ``repro_torch.launch.dryrun.DeviceCounter``
+#: at 8 x 128 tokens and rounded up (tests/test_torch_train_archs.py traces
+#: them again).  Falcon-Mamba's is mostly the plain scan's two (B, d_inner,
+#: d_state) tensors a step, 1 MiB a token
+TRAIN_KEPT = {GRANITE_ARCH: (370_063, 0), MAMBA_ARCH: (1_629_060, 0),
+              SERVE_ARCH: (1_436_457, 1_057_552)}
+
+
+def train_bytes(arch, cfg, batch, seq, remat):
+    """What one float32 training step of ``cfg`` (of ``arch``) on ``batch``
+    x ``seq`` tokens holds on the card at its peak, reckoned from the
+    config before anything is allocated: the state, 16 bytes a parameter
+    (float32 masters, gradients and two AdamW moments), plus the larger of
+    AdamW's temporaries (``adamw_update`` updates a leaf at a time with
+    four float32 temporaries of its size: those of the largest leaf) and
+    what the backward pass holds besides: four (tokens, vocab) float32
+    tensors of the logits and their gradient, and the activations autograd
+    keeps (``TRAIN_KEPT``; with remat each group's input, d_model floats a
+    token, and one group's).  Returns the parts, their "total" and the
+    "parameters" counted."""
+    from repro_torch.launch.dryrun import meta_params
+
+    tokens = batch * seq
+    sizes = [a.numel() for a in _leaves(meta_params(cfg))]
+    per_group, per_tail = TRAIN_KEPT[arch]
+    tail = per_tail if cfg.tail else 0
+    if remat:
+        kept = cfg.n_groups * 4 * cfg.d_model + per_group + tail
+    else:
+        kept = cfg.n_groups * per_group + tail
+    out = {"state": 16 * sum(sizes), "adamw": 4 * 4 * max(sizes),
+           "logits": 4 * 4 * tokens * cfg.vocab, "activations": kept * tokens}
+    out["total"] = out["state"] + max(out["adamw"],
+                                      out["logits"] + out["activations"])
+    out["parameters"] = sum(sizes)
+    return out
+
+
+def _gb(parts) -> str:
+    """A reckoning's parts in GB."""
+    return ", ".join(f"{k} {v / 1e9:.2f}" for k, v in parts.items()
+                     if k != "parameters") + " GB"
+
+
+def plain_scan_profile(device, cfg, batch, seq):
+    """The plain Mamba scan (``mamba_scan_ref``) forward and backward under
+    autograd at one of ``cfg``'s layers' training shapes, on seeded
+    inputs, profiled after a warm-up: (device events, wall ms, device busy
+    ms).  A training step runs it in every layer, the forward twice under
+    remat: what makes the step host-bound."""
+    import torch
+    from repro_torch.kernels.ref import mamba_scan_ref
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    di, ds = cfg.ssm_d_inner, cfg.ssm_state
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return (torch.rand(shape, generator=gen, device=device) * scale
+                + shift).requires_grad_()
+
+    x, bc, cc = (draw(batch, seq, n, scale=2.0, shift=-1.0)
+                 for n in (di, ds, ds))
+    delta = draw(batch, seq, di, scale=0.1)
+    a = draw(di, ds, scale=-8.0, shift=-0.5)
+    d = draw(di)
+
+    def run():
+        y, h = mamba_scan_ref(x, delta, a, bc, cc, d)
+        (y.sum() + h.sum()).backward()
+        _sync(device)
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t
+    busy_us, n, _ = device_activity(prof)
+    return n, wall * 1e3, busy_us / 1e3
+
+
+def phase_train_arch(device, spec, reduced=False, steps=TRAIN_ARCH_STEPS,
+                     batch=TRAIN_ARCH_BATCH, seq=TRAIN_ARCH_SEQ):
+    """Phase 21a-21c for one arch: ``repro_torch.launch.train.main`` in this
+    process at the reference launcher's defaults (float32), ``steps`` AdamW
+    steps, ``--remat`` as ``spec`` says, the launcher's config cut to
+    ``spec.depth`` layers.  The reckoning (``train_bytes``) must be under
+    the card before anything is allocated; then every loss and grad norm
+    finite, the mean of the last two losses below the first, the peak
+    under the card and no LM kernel launched (counted from 0).  Prints the
+    depth chosen and why, the init's wall, the step walls, tokens/s and the
+    peak.  Returns its numbers."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    full = get_config(spec.arch)
+    cfg = card_arch_config(spec, reduced)
+    reckoned = train_bytes(spec.arch, cfg, batch, seq, spec.remat)
+    reckoning_s = time.perf_counter() - t0
+    why = ("all of them" if cfg.n_layers == full.n_layers else
+           f"of {full.n_layers}: the whole arch's state alone is "
+           f"{16 * full.n_params() / 1e9:.1f} GB")
+    print(f"== phase {spec.phase}: training {cfg.name} through "
+          f"repro_torch.launch.train at full width (d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}), depth {cfg.n_layers} ({why}), "
+          f"{cfg.n_params() / 1e9:.3f} B parameters; {steps} AdamW steps of "
+          f"{batch} x {seq} tokens at peak lr {TRAIN_ARCH_LR}, float32, remat "
+          f"{'on' if spec.remat else 'off'}; reckoned {_gb(reckoned)} in "
+          f"{reckoning_s:.2f} s", flush=True)
+    if spec.depth is not None and not reduced:
+        deeper = dataclasses.replace(cfg, n_layers=cfg.n_layers
+                                     + len(cfg.pattern))
+        more = train_bytes(spec.arch, deeper, batch, seq, spec.remat)
+        print(f"the next whole group, depth {deeper.n_layers}, reckons "
+              f"{more['total'] / 1e9:.2f} GB ({_gb(more)})")
+    check(reckoned["total"] < CARD_BYTES, f"{spec.phase}: the step reckons "
+          f"{reckoned['total'] / 1e9} GB, over {CARD_BYTES / 1e9} GB")
+    _float32_matmuls()
+    if device.type == "cuda":
+        _sync(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels = _wrappers()
+    made, records = {}, []
+    real_config, real_init = launch_train.get_config, M.init
+
+    def init(*args, **kwargs):
+        t = time.perf_counter()
+        params = real_init(*args, **kwargs)
+        _sync(device)
+        made["s"] = time.perf_counter() - t
+        return params
+
+    argv = _train_argv(spec.arch, reduced, steps, batch, seq, "--lr",
+                       TRAIN_ARCH_LR, "--warmup", str(TRAIN_ARCH_WARMUP),
+                       "--device", str(device),
+                       *(["--remat"] if spec.remat else []))
+    launch_train.get_config = lambda name: dataclasses.replace(
+        real_config(name), n_layers=cfg.n_layers)
+    M.init = init
+    try:
+        for w in kernels.values():
+            w.launches = 0
+        t = time.perf_counter()
+        state, lines = _run_launcher(argv, records, device)
+        wall = time.perf_counter() - t
+        launches = {k: w.launches for k, w in kernels.items()}
+    finally:
+        launch_train.get_config, M.init = real_config, real_init
+    check(not any(launches.values()),
+          f"{spec.phase}: the training path launched a kernel: {launches}")
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    n_params = sum(a.numel() for a in _leaves(state.params))
+    check(n_params == reckoned["parameters"], f"{spec.phase}: {n_params} "
+          f"parameters trained, {reckoned['parameters']} reckoned")
+    del state
+    logged = [dict(f.split("=") for f in line.split()[2:])
+              for line in lines if line.startswith("step ")]
+    check(len(logged) == steps == len(records) and lines[-1] == "[train] done",
+          f"{spec.phase}: {len(logged)} step lines and {len(records)} steps, "
+          f"wanted {steps}; last line {lines[-1]!r}")
+    losses = [r["loss"] for r in records]
+    gnorms = [r["grad_norm"] for r in records]
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"{spec.phase}: a loss or grad norm is not finite: {losses} {gnorms}")
+    first, last_two = losses[0], statistics.mean(losses[-2:])
+    check(last_two < first, f"{spec.phase}: loss did not fall: first {first}, "
+          f"mean of the last two {last_two}")
+    check(peak < CARD_BYTES, f"{spec.phase}: peak device memory {peak / 1e9} "
+          f"GB over {CARD_BYTES / 1e9} GB")
+    warm = [r["s"] for r in records[1:]]
+    median = statistics.median(warm)
+    print(f"{spec.phase} losses {losses!r}")
+    print(f"{spec.phase} grad norms {gnorms!r}")
+    print(f"{spec.phase}: kernel launches while training {launches}; init "
+          f"{made['s']!r} s; first step {records[0]['s']!r} s; warm steps "
+          f"{warm!r} s, median {median!r} s; {batch * seq / median!r} "
+          f"tokens/s; launcher wall {wall!r} s; peak device memory "
+          f"{peak / 1e9!r} GB (reckoned {reckoned['total'] / 1e9!r})")
+    out = {"arch": spec.arch, "depth": cfg.n_layers, "init_s": made["s"],
+           "first_step_s": records[0]["s"], "warm_median_s": median,
+           "tokens_per_s": batch * seq / median, "peak_gb": peak / 1e9,
+           "reckoned_gb": reckoned["total"] / 1e9, "losses": losses}
+    if cfg.family == "ssm" and device.type == "cuda":
+        n, wall_ms, busy_ms = plain_scan_profile(device, cfg, batch, seq)
+        out["plain_scan"] = {"events": n, "wall_ms": wall_ms,
+                             "busy_ms": busy_ms}
+        print(f"{spec.phase}: mamba_scan_ref forward and backward at one "
+              f"layer's shapes ({batch}, {seq}, {cfg.ssm_d_inner}, "
+              f"{cfg.ssm_state}), profiled: {n} device events, wall "
+              f"{wall_ms!r} ms, device busy {busy_ms!r} ms (share "
+              f"{busy_ms / wall_ms!r}); a step runs it in {cfg.n_layers} "
+              f"layers{', the forward twice (remat)' if spec.remat else ''}")
+    out["s"] = time.perf_counter() - t0
+    print(f"phase {spec.phase} ({spec.arch}): {out['s']:.1f} s", flush=True)
+    return out
+
+
+def phase_train_archs(device, archs=TRAIN_ARCHS, reduced=False,
+                      steps=TRAIN_ARCH_STEPS, batch=TRAIN_ARCH_BATCH,
+                      seq=TRAIN_ARCH_SEQ):
+    """Phase 21: each of ``archs`` trained through the launcher (21a-21c),
+    the card's memory freed between them, then each one's float32 cut,
+    loss and gradients on the card against the CPU at B = 1 and ``seq``
+    tokens (21d; RecurrentGemma's without the tail).  Returns the numbers
+    by phase."""
+    t = time.perf_counter()
+    out = {}
+    for spec in archs:
+        out[spec.phase] = phase_train_arch(device, spec, reduced, steps,
+                                           batch, seq)
+        free_device_memory(device)
+    for spec in archs:
+        base = card_arch_config(spec, reduced)
+        if not spec.cut_tail:
+            base = dataclasses.replace(base, n_layers=spec.cut_depth, tail=())
+        worst, flips = phase_training_float32_cut(
+            device, depth=spec.cut_depth, seq=seq, phase=f"21d {spec.arch}",
+            cfg=base)
+        out[spec.phase].update(cut_worst=worst, cut_flips=flips)
+        free_device_memory(device)
+    s = time.perf_counter() - t
+    card = f" on {card_name_and_limit()}" if device.type == "cuda" else ""
+    print(f"phase 21: {s:.1f} s ("
+          + ", ".join(f"{p} {r['s']:.1f} s" for p, r in out.items())
+          + f", the cuts {s - sum(r['s'] for r in out.values()):.1f} s)"
+          + card, flush=True)
+    return out
+
+
 def free_device_memory(device) -> None:
     """Return what the finished phases held to the card; print the run's
     wall so far."""
@@ -6606,6 +6952,7 @@ def main() -> None:
     phase_checkpoint_resume(device)
     phase_grad_guard(device)
     free_device_memory(device)
+    phase_train_archs(device)
     jobs, joint, schedule_launches = phase_schedule(device)
     online = phase_online(device, jobs, joint)
     phase_card_vs_cpu(device, jobs, joint, *online)

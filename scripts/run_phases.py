@@ -27,8 +27,11 @@ its own weights, where the whole script reuses those of phases 5, 7 and
 and depth through ``repro_torch.launch.serve`` and a full-depth hold of
 the kernels against their plain versions (``20a`` RecurrentGemma-9B,
 ``20b`` Falcon-Mamba-7B, ``20c`` Granite-MoE-3B-A800M, ``20d``
-Qwen3-1.7B, each alone), after phase 1 (the card's name and
-power limit, and the kernels built).  Phases 6a, 8a and 10a run on
+Qwen3-1.7B, each alone), ``21`` the reference's training launcher on the
+three block families no other phase trains, and their float32 cuts against
+the CPU (``21a`` Granite-MoE-3B-A800M, ``21b`` Falcon-Mamba-7B at depth
+24, ``21c`` RecurrentGemma-9B at depth 8, each alone with its own cut),
+after phase 1 (the card's name and power limit, and the kernels built).  Phases 6a, 8a and 10a run on
 stand-in launch counts (they print their kernels-line entries).  Needs a
 CUDA card.
 """
@@ -43,7 +46,7 @@ ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
 ap.add_argument("phases", nargs="+", choices=[
     "5", "6a", "7", "8a", "10a", "10b", "14", "15", "16", "17", "18",
     "18w", "18a", "18b", "18c", "18d", "18e", "18f", "19", "19a", "19b",
-    "19c", "20", "20a", "20b", "20c", "20d"])
+    "19c", "20", "20a", "20b", "20c", "20d", "21", "21a", "21b", "21c"])
 args = ap.parse_args()
 tree = Path(args.tree).resolve()
 sys.path[:0] = [str(tree), str(tree / "src")]
@@ -103,6 +106,9 @@ for phase in args.phases:
                                                     "numbers", "s")}))
                 print(f"phase {spec[0]}: {r['s']:.1f} s on "
                       f"{C.card_name_and_limit()}", flush=True)
+    elif phase.startswith("21"):
+        archs = [s for s in C.TRAIN_ARCHS if phase in ("21", s.phase)]
+        print(json.dumps(C.phase_train_archs(device, archs=archs)))
     else:
         print(json.dumps(C.phase_dryrun(device)[1], default=str))
     C.free_device_memory(device)

@@ -106,7 +106,15 @@ def rglru_scan_ref(
     xf, af = x.float(), a.float()
     h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
-    inject = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * xf
+    # sqrt(max(1 - a², 0)), whose gradient is 0 where that is 0: a float32
+    # gate rounds to 1 once its sigmoid's argument passes about 16.6 (at
+    # full width a few in a million), and there sqrt's gradient is infinite
+    # while the gate's own, a(1 - a), is 0.  Autograd made that inf or NaN
+    # (the reference's gradient is NaN there) where the derivative through
+    # the gate tends to 0; the values are unchanged
+    u = 1.0 - af * af
+    live = u > 0
+    inject = torch.where(live, torch.sqrt(torch.where(live, u, 1.0)), 0.0) * xf
     hs = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
     for t in range(T):
         h = af[:, t] * h + inject[:, t]

@@ -34,6 +34,17 @@ from repro_torch.mapreduce.apps import word_count  # noqa: E402
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def corpus():
     keys, vals = generate_documents(800, 60, seed=0)

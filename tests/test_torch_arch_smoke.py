@@ -44,6 +44,17 @@ GRAD_TOL = 1e-4
 SGD_LR, SGD_RTOL = 0.5, 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _batch(cfg, seed):
     rng = np.random.default_rng(seed)
     out = {"labels": rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)}

@@ -74,6 +74,17 @@ BF16_EPS, ROUNDED_OPS = 2.0 ** -8, 12
 ROUTING_FLIPS_MAX = 0.01
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ids(case):
     return "B{}-T{}-seed{}".format(*case)
 

@@ -17,7 +17,7 @@ worse than uniform.
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from repro.core import collective_plan as RCP  # noqa: E402
@@ -47,6 +47,17 @@ DISPATCHES = {
                          expert_flops_rate_mbps=[50000, 1000, 1000, 1000],
                          max_capacity_factor=2.0),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _reduction(name):

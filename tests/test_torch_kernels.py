@@ -54,6 +54,17 @@ CASES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(n, d, s, ids_kind, seed=0):
     rng = np.random.default_rng(seed)
     values = rng.normal(size=(n, d)).astype(np.float32)

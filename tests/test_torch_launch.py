@@ -41,6 +41,17 @@ from repro_torch.launch.dryrun import (COLLECTIVE_KINDS,  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ref_dryrun():
     """The reference's dry-run module, imported without leaving its
     512-device ``XLA_FLAGS`` in this process's environment."""

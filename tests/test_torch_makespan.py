@@ -25,6 +25,17 @@ BARRIER_TRIPLES = list(itertools.product("GLP", repeat=3))
 IDS = ["".join(b) for b in BARRIER_TRIPLES]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _plans(seed, nS, nM, nR):
     rng = np.random.default_rng(seed)
     x = rng.dirichlet(np.ones(nM), size=nS)

@@ -37,6 +37,17 @@ APPS = {
 PLANS = {"uniform": (r_uniform, t_uniform), "local_push": (r_local, t_local)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _corpus(kind, gen):
     if kind == "docs":
         return gen.generate_documents(800, 60, seed=0)

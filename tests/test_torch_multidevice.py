@@ -40,6 +40,17 @@ def join():
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def run_world(tmp_path, body: str, world: int = WORLD):
     """Run ``body`` in ``world`` processes (``RANK``, ``WORLD_SIZE`` and a
     ``file://`` rendezvous in ``INIT``); each must exit 0.  Returns each

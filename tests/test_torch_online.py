@@ -41,6 +41,17 @@ PKGS = {"ref": RC, "port": TC}
 # an observed residual: three jobs on the PlanetLab substrate, mid-run
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _plans(C, n_jobs=3, n=8, seed=11):
     rng = np.random.default_rng(seed)
     return [C.ExecutionPlan(x=rng.dirichlet(np.ones(n), size=n),

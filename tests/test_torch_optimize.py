@@ -39,6 +39,17 @@ MODES = ["uniform", "local_push", "myopic_push", "myopic_multi", "e2e_push",
          "e2e_shuffle", "e2e_multi"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("n,restarts,seed", [(8, 24, 0), (4, 6, 3), (2, 2, 9)])
 def test_initial_logits_identical(n, restarts, seed):
     rlx, rly = RO._initial_logits(r_planetlab(n, seed=seed), restarts, seed)

@@ -34,6 +34,17 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 B, T = 2, 25
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfg(archs, name):
     cfg = archs[name].reduced()
     # token-in, as the reference's test serves musicgen: the frontend stub

@@ -13,7 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 import repro.core as RC  # noqa: E402
@@ -25,6 +25,17 @@ ROOT = Path(__file__).resolve().parents[1]
 SEEDS = (0, 7, 123)
 SUBSTRATE_FIELDS = ("B_sm", "B_mr", "C_m", "C_r", "cluster_s", "cluster_m",
                     "cluster_r")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def small_tier(C, seed=7):

@@ -29,6 +29,17 @@ POLICIES = [("independent", "makespan"), ("sequential", "makespan"),
             ("joint", "makespan"), ("joint", "min_max_slowdown")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def contended_substrate(pkg):
     """The benchmark's ``contended_pair`` (benchmarks/paper_figures.py):
     only one job reaches mapper m1 fast, so myopic planning collides."""

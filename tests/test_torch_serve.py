@@ -38,6 +38,17 @@ from repro_torch.serve.engine import Request, ServeConfig, ServeEngine  # noqa: 
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pair(name, seed=0):
     rcfg, pcfg = REF_ARCHS[name].reduced(), ARCHS[name].reduced()
     rparams = RM.init(rcfg, jax.random.PRNGKey(seed))

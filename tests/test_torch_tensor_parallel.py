@@ -39,6 +39,17 @@ CPU = torch.device("cpu")
 LAYER_ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores, and beside
+    them torch's pool of a thread a core made this file's CPU work up to
+    30 times slower (contention, not work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
