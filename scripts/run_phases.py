@@ -31,9 +31,16 @@ Qwen3-1.7B, each alone), ``21`` the reference's training launcher on the
 three block families no other phase trains, and their float32 cuts against
 the CPU (``21a`` Granite-MoE-3B-A800M, ``21b`` Falcon-Mamba-7B at depth
 24, ``21c`` RecurrentGemma-9B at depth 8, each alone with its own cut),
-after phase 1 (the card's name and power limit, and the kernels built).  Phases 6a, 8a and 10a run on
-stand-in launch counts (they print their kernels-line entries).  Needs a
-CUDA card.
+``22`` the paper's own evaluation (every planner mode over the 13
+PlanetLab platforms, the barrier relaxations, the model against the DES,
+the three applications executed, the dynamic mechanisms; ``22a``..``22e``
+each alone; ``22`` and ``22d`` run phase 2 first, whose word count run is
+22d's word count row, and 22b, 22c and 22e alone solve the plans they
+otherwise take from 22a or 22d), after phase 1 (the card's name and power
+limit, and the kernels built).  Phases 6a, 8a and 10a run on stand-in
+launch counts (they print their kernels-line entries).  Needs a CUDA card.
+
+To rehearse phase 22 on the CPU, see ``tests/test_torch_paper_figures.py``.
 """
 import argparse
 import json
@@ -46,7 +53,8 @@ ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
 ap.add_argument("phases", nargs="+", choices=[
     "5", "6a", "7", "8a", "10a", "10b", "14", "15", "16", "17", "18",
     "18w", "18a", "18b", "18c", "18d", "18e", "18f", "19", "19a", "19b",
-    "19c", "20", "20a", "20b", "20c", "20d", "21", "21a", "21b", "21c"])
+    "19c", "20", "20a", "20b", "20c", "20d", "21", "21a", "21b", "21c",
+    "22", "22a", "22b", "22c", "22d", "22e"])
 args = ap.parse_args()
 tree = Path(args.tree).resolve()
 sys.path[:0] = [str(tree), str(tree / "src")]
@@ -109,6 +117,19 @@ for phase in args.phases:
     elif phase.startswith("21"):
         archs = [s for s in C.TRAIN_ARCHS if phase in ("21", s.phase)]
         print(json.dumps(C.phase_train_archs(device, archs=archs)))
+    elif phase in ("22", "22d"):
+        wc_row = C.phase_main_path(device)[2]
+        C.free_device_memory(device)
+        if phase == "22":
+            out = C.phase_paper_figures(device, wc_row)
+            print(json.dumps({k: out[k] for k in ("launches", "walls",
+                                                  "fig4", "fig9", "fig10",
+                                                  "s")}))
+        else:
+            C.paper_apps(device, wc_row)
+    elif phase.startswith("22"):
+        {"22a": C.paper_modes, "22b": C.paper_barriers, "22c": C.paper_des,
+         "22e": C.paper_dynamics}[phase](device)
     else:
         print(json.dumps(C.phase_dryrun(device)[1], default=str))
     C.free_device_memory(device)
