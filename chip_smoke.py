@@ -283,8 +283,9 @@ Phases:
     its plain version at ``KERNEL_TOL`` (``flash_attention`` on 512-row
     query slices through ``q_offset``; ``mamba_scan`` on every 65th
     channel, on a CPU copy; ``moe_dispatch``'s 262,144 rows into (40,
-    8192, 1536) bit for bit), timed beside its bound (and SDPA, or
-    ``index_add_``).  For the two sub-quadratic archs, ``long_500k`` as the
+    8192, 1536) bit for bit), its bound and its time in the served
+    prefill beside the plain version's (its own times at these shapes are
+    in PERF.md).  For the two sub-quadratic archs, ``long_500k`` as the
     reference's dry run lowers it: a zeroed float32 cache of 524,288
     positions whose bytes equal ``cache_specs``' stand-in's, 8 decode
     steps at positions 524,280-524,287 (tokens, finite logits, launches
@@ -363,15 +364,55 @@ Phases:
     measured makespan below both baselines'.  It prints each batched call's
     wall, the busy share and device events a step of a 25-step solve, each
     app's walls and the paper's reductions beside the card's.
+23. The control plane at the reference's scale (beside 14 to 16), as the
+    reference's ``benchmarks/paper_figures.py`` builds its scenarios, at
+    its ``--quick`` budget of 6 restarts x 200 steps (``CONTROL_OPT``).
+    23a: Fig 12's three DES runs (local_push with 1, 2 and 3 replicas),
+    equal to the reference's bit for bit; ``schedule_failover`` (a reducer
+    killed mid-shuffle, then a cluster partitioned until 400 s, 2
+    replicas, audited) under ``reactive_shared`` and ``reactive_failover``,
+    and ``schedule_online_shared`` (a late job stuck on a reducer, a drift,
+    two nuisance steps) under ``reactive``, ``reactive_shared`` and
+    hysteresis-free co-replanning, each online run with the solve charge
+    pinned (``CONTROL_CHARGE_S``; its frozen, online and static makespans
+    within 1e-3 of the reference's, ``REF_CONTROL``, or where the
+    reference's anneals have not settled within its own spread over other
+    ``run_online`` seeds and a 1e-7 move of one bandwidth,
+    ``REF_CONTROL_SPREAD``) and with the measured
+    EMA's (printed with its swaps, rejections and charge); every plan
+    valid, and at no adopted decision anything modeled worse than what it
+    replaced.  23b: the planner service (``bench_planner``): a cold and 8
+    warm solves at 6 x 203, a B = 8 ``optimize_plan_batch``, and
+    ``replan_batch`` full and incremental at 6 x 500, best of 3, each
+    timed between two synchronizations: every plan never worse than
+    uniform, no replan worse than its incumbent, the solver counters the
+    reference's; alone, the process's first solve split into its parts in
+    a fresh process (``--first-solve``; CUDA's lazy module loading and
+    eager).  23c: ``online_1000``, 996 nodes (480 edges, 336 mappers, 180
+    reducers), 100 fluid jobs, a backbone-wide reducer brownout to 5% at
+    250 s, 90 jobs live and 10 arriving at 300 s and 480 s,
+    ``reactive_shared`` co-replanning incrementally (4 restarts x the 16
+    most-behind jobs x 8 steps a decision) at a pinned 5 s charge: its
+    decisions and swaps the reference's or within their range over other
+    seeds (``REF_SCALE_SPREAD``), its makespan within its bar, a positive
+    online margin, every plan valid, the wall against the reference's 60 s
+    budget and the peak device memory printed; one decision's anneal at
+    full size held on the card against the CPU in float64 (x, y atol
+    1e-4, the exact objective rtol 1e-4; float32 rounding alone moves x
+    past 1e-4 there, so the float32 distances are printed) and profiled:
+    busy share and device events a step.  No kernel launches in phase 23.
+    In the whole script its three parts run at once, each in a process of
+    its own (``--control-part``), started before phase 14 and waited for
+    after phase 16; alone (``scripts/run_phases.py 23``) in turn.
 
 After the phases, one ``{"kernels": [...]}`` line lists every kernel; the
 scans' entries time the float32 prefill inputs the bf16 models now give
 them (the bf16 prefill beside), and ``moe_dispatch``'s and
 ``flash_attention``'s launches add those of 14b's expert-parallel
 prefills (``flash_attention``'s also 17e's) and of phase 18's serving,
-with phase 18's shapes' errors and times (``card_archs``,
-``llama4-scout-17b-a16e_prefill``); each LM kernel's add those of phase
-19's serving and ``long_500k`` steps, with its 32k shapes' errors and
+with phase 18's shapes' errors (``card_archs``; their times are in
+PERF.md) and ``llama4-scout-17b-a16e_prefill``; each LM kernel's add
+those of phase 19's serving and ``long_500k`` steps, with its 32k shapes' errors and
 times (``long_32k``, by arch), and those of phase 20's float32 serving
 through the launcher, with each kernel's device ms a launch in the
 float32 prefill (``float32_in_place_ms``, by arch).
@@ -5536,12 +5577,11 @@ def _windows(cfg):
 def phase_arch_attention(device, cfg, t_len, phase, seed=6):
     """flash_attention at ``cfg``'s prefill shape (1, Hq, T, Dh) with its kv
     heads, for each window its layers use, in bfloat16 and float32: held
-    to ``KERNEL_TOL`` against the plain version on the same inputs and
-    timed (``flash_timings``; SDPA gets K and V repeated to the query
-    heads, the window as a boolean mask).  Returns (max |err|, {shape
-    label: the bf16 timings with the float32 ones inside})."""
+    to ``KERNEL_TOL`` against the plain version on the same inputs (its
+    times at these shapes, from ``flash_timings``, are in PERF.md).
+    Returns (max |err|, {shape label: the bf16 error and shape with the
+    float32 error inside})."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
 
@@ -5553,11 +5593,6 @@ def phase_arch_attention(device, cfg, t_len, phase, seed=6):
     worst, timed = 0.0, {}
     for window in _windows(cfg):
         label = f"(1, {hq}, {t_len}, {dh}) Hkv {hkv} window {window}"
-        mask = None
-        if window is not None:
-            pos = torch.arange(t_len, device=device)
-            mask = ((pos[None, :] <= pos[:, None])
-                    & (pos[None, :] > pos[:, None] - window))
         for dtype in (torch.bfloat16, torch.float32):
             atol, rtol = KERNEL_TOL[str(dtype)]
             q, k, v = (torch.randn((1, h, t_len, dh), generator=gen)
@@ -5572,19 +5607,13 @@ def phase_arch_attention(device, cfg, t_len, phase, seed=6):
             worst = max(worst, err)
             print(f"flash_attention {label} causal {dtype}: max |err| {err!r} "
                   f"(atol {atol}, rtol {rtol})")
-            kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
-            times = flash_timings(
-                q, k, v, window,
-                lambda q=q, kr=kr, vr=vr: F.scaled_dot_product_attention(
-                    q, kr, vr, attn_mask=mask, is_causal=mask is None))
-            times["max_abs_err"] = err
             if dtype == torch.float32:
-                timed[label]["float32"] = times
+                timed[label]["float32"] = {"max_abs_err": err}
             else:
-                timed[label] = dict(times, shape={
+                timed[label] = {"max_abs_err": err, "shape": {
                     "B": 1, "Hq": hq, "Hkv": hkv, "T": t_len, "S": t_len,
-                    "Dh": dh, "window": window, "dtype": str(dtype)})
-            del q, k, v, kr, vr
+                    "Dh": dh, "window": window, "dtype": str(dtype)}}
+            del q, k, v
     return worst, timed
 
 
@@ -5816,16 +5845,11 @@ def long_flash(device, cfg, t_len, in_place, seed=19):
     queries (the first, one in the middle off the 64-row tiles, the last),
     each against the keys it can see (cut at the slice's last row and,
     under a window, at its first visible key; ``q_offset`` places the
-    slice).  Timed: the wrapper (CUDA events), the kernel on the device
-    alone (profiler; and its launches queued behind a sleep kernel, CUDA
-    events, where the profiler may miss launches) and in place
-    (``in_place``, from the served prefill),
-    the plain version on the last slice, SDPA (K and V repeated to the
-    query heads, the window as a boolean mask, TF32 off) with its backend
-    and its max |err| on the slices, and the bound.  Returns the bf16
-    numbers with the float32 ones under "float32"."""
+    slice).  Beside it the plain version's time on the last slice, the
+    kernel's time in the served prefill (``in_place``) and the bound; the
+    kernel's own times at this shape and SDPA's are in PERF.md.  Returns
+    the bf16 numbers with the float32 ones under "float32"."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
 
@@ -5839,12 +5863,6 @@ def long_flash(device, cfg, t_len, in_place, seed=19):
           "version", flush=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    mask = None
-    if window is not None:
-        pos = torch.arange(t_len, device=device)
-        mask = ((pos[None, :] <= pos[:, None])
-                & (pos[None, :] > pos[:, None] - window))
-        del pos
     out = {"shape": {"B": 1, "Hq": hq, "Hkv": hkv, "T": t_len, "S": t_len,
                      "Dh": dh, "window": window}, "max_abs_err": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
@@ -5852,10 +5870,7 @@ def long_flash(device, cfg, t_len, in_place, seed=19):
         q, k, v = (torch.randn((1, h, t_len, dh), generator=gen, device=device)
                    .to(dtype) for h in (hq, hkv, hkv))
 
-        def run():
-            return flash_attention(q, k, v, causal=True, window=window)
-
-        got = run()
+        got = flash_attention(q, k, v, causal=True, window=window)
         _sync(device)
 
         def plain(q0):
@@ -5864,62 +5879,31 @@ def long_flash(device, cfg, t_len, in_place, seed=19):
             return attention_ref(q[:, :, q0:hi], k[:, :, lo:hi], v[:, :, lo:hi],
                                  causal=True, window=window, q_offset=q0 - lo)
 
-        wants, err = [], 0.0
+        err = 0.0
         for q0 in starts:
-            want = plain(q0)
-            ok, e = _close(got[:, :, q0:q0 + LONG_ROWS], want, atol, rtol)
+            ok, e = _close(got[:, :, q0:q0 + LONG_ROWS], plain(q0), atol, rtol)
             check(ok and e == e and got.dtype == dtype,
                   f"flash_attention {label} {dtype} rows {q0}..{q0 + LONG_ROWS}:"
                   f" max |err| {e} over atol {atol} rtol {rtol}")
             err = max(err, e)
-            wants.append(want)
         del got
         _, plain_ms = once_ms(lambda: plain(starts[-1]), device)
-        kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask,
-                                                  is_causal=mask is None)
-
-        lib_out = sdpa()
-        lib = {"library_max_abs_err": max(
-            _close(lib_out[:, :, q0:q0 + LONG_ROWS], w, 0.0, 0.0)[1]
-            for q0, w in zip(starts, wants)),
-            # the math backend is not tried: it would hold the whole
-            # (1, Hq, T, S) scores
-            "library_backend": sdpa_backend(sdpa, lib_out, tried=(
-                "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"))}
-        del lib_out
-        # warmed by the calls above
-        lib["library_ms"] = time_ms(sdpa, runs=3, per_run=1, warmup=0)
         bound, bound_by = flash_bound_ms(q, k, True, window, 0)
-        times = {
-            "ms": time_ms(run, runs=5, per_run=2, warmup=1),
-            "kernel_device_ms": kernel_device_ms(
-                run, FLASH_F32 if dtype == torch.float32
-                else "flash_attention_kernel", wrapper=flash_attention,
-                calls=3),
-            "queued_ms": time_queued_ms(run, calls=5),
-            "plain_ms": plain_ms, "plain_rows": LONG_ROWS,
-            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err, **lib}
+        times = {"plain_ms": plain_ms, "plain_rows": LONG_ROWS,
+                 "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err}
         if dtype == torch.bfloat16:
             times["in_place_ms"] = in_place.get("flash_attention")
-        print(f"timing flash_attention {label} {dtype}: wrapper {times['ms']!r}"
-              f" ms  kernel (device, alone) {times['kernel_device_ms']!r} ms  "
-              f"queued on the card {times['queued_ms']!r} ms  in the served "
-              f"prefill {times.get('in_place_ms')!r} ms  bound "
-              f"{bound!r} ms ({bound_by}; share of the device ms "
-              f"{_share(bound, times['kernel_device_ms'])!r})  plain on "
-              f"{LONG_ROWS} rows {plain_ms!r} ms  library (sdpa, TF32 off, "
-              f"backend {lib['library_backend']}) {lib['library_ms']!r} ms "
-              f"(max |err| {lib['library_max_abs_err']!r})  max |err| "
-              f"{err!r} (atol {atol}, rtol {rtol})", flush=True)
+        print(f"flash_attention {label} {dtype}: max |err| {err!r} (atol "
+              f"{atol}, rtol {rtol}); in the served prefill "
+              f"{times.get('in_place_ms')!r} ms  bound {bound!r} ms "
+              f"({bound_by})  plain on {LONG_ROWS} rows {plain_ms!r} ms",
+              flush=True)
         if dtype == torch.float32:
             out["float32"] = times
         else:
             out.update(times, dtype=str(dtype))
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        del q, k, v, kr, vr, wants
+        del q, k, v
     return out
 
 
@@ -5929,7 +5913,7 @@ def long_rglru(device, width, t_len, in_place, seed=19):
     them), held to the plain version at ``KERNEL_TOL``: the plain version
     takes every input in float32, so its one run on the float32 inputs
     (the bf16 values) gives both dtypes' want, the bf16 one rounded as it
-    rounds it.  Timed as ``long_flash``; returns the float32 inputs'
+    rounds it.  Beside it as ``long_flash``; returns the float32 inputs'
     numbers with the bf16 ones under "bf16"."""
     import torch
     from repro_torch.kernels.ref import rglru_scan_ref
@@ -5951,10 +5935,7 @@ def long_rglru(device, width, t_len, in_place, seed=19):
         atol, rtol = KERNEL_TOL[str(dtype)]
         xs, gs = x.to(dtype), a.to(dtype)
 
-        def run():
-            return rglru_scan(xs, gs, h0)
-
-        y, h_t = run()
+        y, h_t = rglru_scan(xs, gs, h0)
         _sync(device)
         ok_y, err_y = _close(y, y_ref.to(dtype), atol, rtol)
         ok_h, err_h = _close(h_t, h_ref, atol, rtol)
@@ -5962,28 +5943,17 @@ def long_rglru(device, width, t_len, in_place, seed=19):
               f"rglru_scan (1,{t_len},{width}) {dtype}: max |err| y {err_y} "
               f"h_T {err_h} over atol {atol} rtol {rtol}")
         del y, h_t
-        per_name = {}
         bound, bound_by = rglru_bound_ms(xs, True)
-        times = {"ms": time_ms(run, runs=10, per_run=5),
-                 "kernel_device_ms": kernel_device_ms(
-                     run, RGLRU_KERNELS, wrapper=rglru_scan, calls=5,
-                     recorded_per_call=per_name),
-                 "queued_ms": time_queued_ms(run, calls=5),
-                 "recorded_launches_per_call": per_name,
-                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        times = {"plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                  "max_abs_err": max(err_y, err_h), "library_ms": None}
         if dtype == torch.float32:
             times["in_place_ms"] = in_place.get("rglru_scan")
         print(f"rglru_scan (1,{t_len},{width}) {dtype}, {n_chunks} chunks of "
               f"{chunk} steps: max |err| y {err_y!r} h_T {err_h!r} (atol "
-              f"{atol}, rtol {rtol}); wrapper {times['ms']!r} ms  kernels "
-              f"(device, alone) {times['kernel_device_ms']!r} ms (launches a "
-              f"call recorded {per_name})  queued on the card "
-              f"{times['queued_ms']!r} ms  in the served prefill "
+              f"{atol}, rtol {rtol}); in the served prefill "
               f"{times.get('in_place_ms')!r} ms  bound {bound!r} ms "
-              f"({bound_by}; share {_share(bound, times['kernel_device_ms'])!r})"
-              f"  plain (float32 inputs, on the card) {plain_ms!r} ms",
-              flush=True)
+              f"({bound_by})  plain (float32 inputs, on the card) "
+              f"{plain_ms!r} ms", flush=True)
         if dtype == torch.float32:
             out.update(times, dtype=str(dtype))
         else:
@@ -5998,8 +5968,8 @@ def long_mamba(device, d_inner, d_state, t_len, in_place, seed=19):
     float32 inputs, the whole shape on the card, held to the plain version
     at ``KERNEL_TOL`` on every ``LONG_MAMBA_CHANNELS``-th channel, run on
     a CPU copy (one run gives both dtypes' want, as in ``long_rglru``).
-    Timed as ``long_flash``; returns the float32 inputs' numbers with the
-    bf16 ones under "bf16"."""
+    Beside it as ``long_flash``; returns the float32 inputs' numbers with
+    the bf16 ones under "bf16"."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.mamba_scan import mamba_scan
@@ -6034,10 +6004,7 @@ def long_mamba(device, d_inner, d_state, t_len, in_place, seed=19):
         args = (x.to(dtype), delta.to(dtype), A, Bc.to(dtype), Cc.to(dtype),
                 D, h0)
 
-        def run():
-            return mamba_scan(*args)
-
-        y, h_t = run()
+        y, h_t = mamba_scan(*args)
         _sync(device)
         ok_y, err_y = _close(y[..., sl].cpu(), y_ref.to(dtype), atol, rtol)
         ok_h, err_h = _close(h_t[:, sl].cpu(), h_ref, atol, rtol)
@@ -6048,24 +6015,17 @@ def long_mamba(device, d_inner, d_state, t_len, in_place, seed=19):
         del y, h_t
         bound, bound_by, sfu = mamba_bound_ms(1, t_len, d_inner, d_state,
                                               args[0].element_size(), 2, True)
-        times = {"ms": time_ms(run, runs=10, per_run=5),
-                 "kernel_device_ms": kernel_device_ms(
-                     run, "mamba_scan_kernel", wrapper=mamba_scan, calls=5),
-                 "queued_ms": time_queued_ms(run, calls=5),
-                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        times = {"plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                  "exp_sfu_ms": sfu, "max_abs_err": max(err_y, err_h),
                  "library_ms": None}
         if dtype == torch.float32:
             times["in_place_ms"] = in_place.get("mamba_scan")
         print(f"mamba_scan (1,{t_len},{d_inner},{d_state}) {dtype}: max |err| "
               f"y {err_y!r} h_T {err_h!r} on {out['plain_channels']} (atol "
-              f"{atol}, rtol {rtol}); wrapper {times['ms']!r} ms  kernel "
-              f"(device, alone) {times['kernel_device_ms']!r} ms  queued on the "
-              f"card {times['queued_ms']!r} ms  in the served prefill "
+              f"{atol}, rtol {rtol}); in the served prefill "
               f"{times.get('in_place_ms')!r} ms  bound {bound!r} ms "
-              f"({bound_by}; share {_share(bound, times['kernel_device_ms'])!r};"
-              f" exp on the SFUs {sfu!r} ms)  plain on those channels "
-              f"{plain_ms!r} ms", flush=True)
+              f"({bound_by}; exp on the SFUs {sfu!r} ms)  plain on those "
+              f"channels {plain_ms!r} ms", flush=True)
         if dtype == torch.float32:
             out.update(times, dtype=str(dtype))
         else:
@@ -6078,9 +6038,9 @@ def long_moe(device, cfg, t_len, in_place, seed=19):
     """moe_dispatch at the 32k prefill: ``t_len`` tokens' top-k rows into
     (E, C, d_model) at the prefill's capacity, every kept (expert, slot)
     pair unique, in bfloat16 (served) and float32 (the same values), held
-    to the plain version bit for bit.  Timed as ``long_flash``, with
-    ``index_add_`` as the library call; returns the bf16 numbers with the
-    float32 ones under "float32"."""
+    to the plain version bit for bit.  Beside it as ``long_flash``
+    (``index_add_``'s times are in PERF.md); returns the bf16 numbers with
+    the float32 ones under "float32"."""
     import torch
     from repro_torch.kernels.moe_dispatch import moe_dispatch
     from repro_torch.kernels.ref import moe_dispatch_ref
@@ -6090,20 +6050,12 @@ def long_moe(device, cfg, t_len, in_place, seed=19):
     tokens, ids, slot_ids = _routed(t_len, k, e, c, d, torch.bfloat16,
                                     "unique", device, seed)
     kept = int((slot_ids < c).sum())
-    flat = torch.where(slot_ids < c, ids.long() * c + slot_ids.long(), e * c)
     out = {"shape": {"T": tokens.shape[0], "D": d, "E": e, "C": c,
                      "kept": kept}, "max_abs_err": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         toks = tokens.to(dtype)
 
-        def run():
-            return moe_dispatch(toks, ids, slot_ids, e, c)
-
-        def library():  # one PyTorch call: index_add_ into (E·C + 1, D)
-            return torch.zeros((e * c + 1, d), dtype=dtype,
-                               device=device).index_add_(0, flat, toks)
-
-        got = run()
+        got = moe_dispatch(toks, ids, slot_ids, e, c)
         want, plain_ms = once_ms(
             lambda: moe_dispatch_ref(toks, ids, slot_ids, e, c), device)
         check(torch.equal(got, want) and tuple(got.shape) == (e, c, d),
@@ -6112,24 +6064,14 @@ def long_moe(device, cfg, t_len, in_place, seed=19):
         del got, want
         bound, bound_by = moe_bound_ms(kept, tokens.shape[0], d, e, c,
                                        toks.element_size())
-        times = {"ms": time_ms(run, runs=10, per_run=5),
-                 "kernel_device_ms": kernel_device_ms(
-                     run, MOE_KERNELS, wrapper=moe_dispatch, calls=5),
-                 "queued_ms": time_queued_ms(run, calls=5),
-                 "plain_ms": plain_ms,
-                 "library_ms": time_ms(library, runs=10, per_run=5),
-                 "bound_ms": bound, "bound_by": bound_by, "max_abs_err": 0.0}
+        times = {"plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                 "max_abs_err": 0.0}
         if dtype == torch.bfloat16:
             times["in_place_ms"] = in_place.get("moe_dispatch")
         print(f"moe_dispatch T={tokens.shape[0]} D={d} E={e} C={c} {dtype}: "
-              f"kept {kept}, equal bit for bit to the plain version; wrapper "
-              f"{times['ms']!r} ms  kernels (device, alone) "
-              f"{times['kernel_device_ms']!r} ms  queued on the card "
-              f"{times['queued_ms']!r} ms  in the served prefill "
-              f"{times.get('in_place_ms')!r} ms  bound {bound!r} ms ({bound_by};"
-              f" share {_share(bound, times['kernel_device_ms'])!r})  plain "
-              f"{plain_ms!r} ms  library (index_add_) {times['library_ms']!r} "
-              "ms", flush=True)
+              f"kept {kept}, equal bit for bit to the plain version; in the "
+              f"served prefill {times.get('in_place_ms')!r} ms  bound "
+              f"{bound!r} ms ({bound_by})  plain {plain_ms!r} ms", flush=True)
         if dtype == torch.float32:
             out["float32"] = times
         else:
@@ -6140,7 +6082,7 @@ def long_moe(device, cfg, t_len, in_place, seed=19):
 
 def phase_long_kernels(device, cfg, t_len, in_place):
     """Each LM kernel that ``cfg``'s layers launch, at its 32k prefill
-    shape, against its plain version and timed; ``in_place`` holds each
+    shape, against its plain version; ``in_place`` holds each
     kernel's device ms a call in the served prefill.  Returns the numbers
     by kernel name."""
     mixers = {b.mixer for b in cfg.pattern + cfg.tail}
@@ -7682,6 +7624,1032 @@ REF_FIG10 = {
     },
 }
 
+# ---------------------------------------------------------------------------
+# phase 23: the control plane at the reference's scale
+# ---------------------------------------------------------------------------
+
+#: the reference benchmark's ``--quick`` budget (benchmarks/run.py:82), the
+#: one its recorded run (benchmarks/baseline.json) took
+CONTROL_OPT = dict(n_restarts=6, steps=200)
+#: the solve cost 23a's held runs charge each swap: pinned, since the
+#: measured charge is a half-decade bucket of this host's solve times (the
+#: reference's jitted CPU solve falls in another bucket than the card's)
+CONTROL_CHARGE_S = 1.0
+#: a makespan's bar where the reference's anneal has settled; where it has
+#: not (``REF_CONTROL_SPREAD``), ``control_bar`` widens it by its spread
+CONTROL_RTOL = 1e-3
+#: the seeds of ``run_online`` whose runs measure that spread, and the
+#: relative moves of one bandwidth of each fabric that measure it too (a
+#: solve whose winner does not move with the seed still moves with its
+#: inputs: at 6 x 100 such a nudge moves reactive_solo's makespan by 5%)
+CONTROL_SPREAD_SEEDS = (1, 2)
+CONTROL_SPREAD_NUDGES = (1e-7, -1e-7)
+#: schedule_failover (paper_figures.py:554): two jobs' volumes, a reducer
+#: killed mid-shuffle, then cluster 1 partitioned until t = 400 s
+FAILOVER_D = ((5000.0, 5000.0, 0.0), (3000.0, 3000.0, 0.0))
+FAILOVER_POLICIES = ("reactive_shared", "reactive_failover")
+#: schedule_online_shared (paper_figures.py:446): the steady job, the late
+#: one arriving at 50 s, and the three co-replanning variants (name,
+#: policy, the OnlineConfig's fields where it overrides the policy's)
+SHARED_D = ((8000.0, 8000.0, 0.0, 0.0), (0.0, 0.0, 6000.0, 6000.0))
+SHARED_ARRIVAL_S = 50.0
+SHARED_VARIANTS = (("reactive_solo", "reactive", None),
+                   ("reactive_shared", "reactive_shared", None),
+                   ("shared_no_hysteresis", "reactive_shared",
+                    dict(shared=True, hysteresis=0.0)))
+#: fig12_replication (paper_figures.py:213)
+FIG12_REPLICATION = (1, 2, 3)
+#: bench_planner (paper_figures.py:627) at the quick budget: single solves
+#: at 3 steps past it (a key no other scenario uses), replan_batch at its
+#: production 500 steps, 8 warm solves, 8 seeded views, best of 3
+PLANNER_OPT = dict(n_restarts=6, steps=203)
+PLANNER_REPLAN_OPT = dict(n_restarts=6, steps=500)
+PLANNER_WARM = 8
+PLANNER_REPEATS = 3
+#: online_1000 (paper_figures.py:934-966): 996 nodes, 100 fluid jobs, a
+#: backbone-wide reducer brownout to 5% at 250 s, the 90 first released
+#: live and the last 10 arriving at 300 s and 480 s, reactive_shared
+#: co-replanning incrementally at a pinned 5 s decision cost
+SCALE_TIER = dict(n_regions=12, edges_per_region=40, mappers_per_region=28,
+                  n_backbone=4, reducers_per_backbone=45, seed=1)
+SCALE_MIX = dict(n_jobs=100, seed=3, arrival_spread_s=600.0)
+SCALE_LIVE = 90
+SCALE_ARRIVALS_S = (300.0, 480.0)
+SCALE_BROWNOUT = (250.0, 0.05)
+SCALE_CHARGE_S = 5.0
+#: the reference's CI budget for the run (its docstring), printed beside
+#: the card's wall, not checked: hosts differ by up to 55% (PERF.md)
+SCALE_BUDGET_S = 60.0
+#: the fresh process that splits the first solve (``--first-solve``) is
+#: stopped after this
+FIRST_SOLVE_TIMEOUT_S = 300
+
+
+def control_pkg(device):
+    """The port's entry points for the phase-23 scenarios, each solve on
+    ``device``; ``tests/test_torch_control_plane.py`` runs the same
+    scenarios through the reference's (``api``, ``core``, ``dev`` = {})."""
+    import types
+
+    import repro_torch.api as api
+    import repro_torch.core as core
+
+    return types.SimpleNamespace(api=api, core=core,
+                                 dev={"device": device},
+                                 sync=lambda: _sync(device))
+
+
+def failover_fabric(core, failures=()):
+    """``failover_substrate`` (paper_figures.py:518): clusters A (s0, s1,
+    m0, m1, r0, r1) and B (s2, m2, r2), a fast wide-area shuffle path into
+    B's big reducer r2."""
+    import numpy as np
+
+    sub = core.Substrate(
+        B_sm=np.array([[200.0, 200.0, 1.0], [200.0, 200.0, 1.0],
+                       [1.0, 1.0, 200.0]]),
+        B_mr=np.array([[200.0, 200.0, 150.0], [200.0, 200.0, 150.0],
+                       [2.0, 2.0, 200.0]]),
+        C_m=np.array([100.0, 100.0, 100.0]),
+        C_r=np.array([100.0, 40.0, 500.0]),
+        cluster_s=np.array([0, 0, 1]), cluster_m=np.array([0, 0, 1]),
+        cluster_r=np.array([0, 0, 1]), name="failover")
+    return sub.with_failures(list(failures)) if failures else sub
+
+
+def failover_faults(core):
+    """schedule_failover's faults (paper_figures.py:568-571)."""
+    return [core.FailureEvent.reducer_kill(1, 115.0),
+            core.FailureEvent.cluster_partition(1, 118.0, 400.0)]
+
+
+def shared_online_fabric(core, t_drift=110.0):
+    """``shared_online_substrate`` (paper_figures.py:410): the late job
+    stuck on r1, r0 degrading 300 -> 40 MB/s at ``t_drift``, two nuisance
+    steps on dead push links."""
+    import numpy as np
+
+    return core.Substrate(
+        B_sm=np.array([[200.0, 200.0, 1.0, 1.0], [200.0, 200.0, 1.0, 1.0],
+                       [1.0, 1.0, 200.0, 200.0], [1.0, 1.0, 200.0, 200.0]]),
+        B_mr=np.array([[200.0, 200.0], [200.0, 200.0], [1.0, 200.0],
+                       [1.0, 200.0]]),
+        C_m=np.array([100.0, 100.0, 100.0, 100.0]),
+        C_r=np.array([300.0, 60.0]),
+        cluster_s=np.array([0, 0, 1, 1]), cluster_m=np.array([0, 0, 1, 1]),
+        cluster_r=np.array([0, 1]), name="online_shared",
+    ).with_traces({
+        "reduce[r0]": core.CapacityTrace.step(300.0, 40.0, t_drift),
+        "push[s0->m2]": core.CapacityTrace.step(1.0, 0.9, 150.0),
+        "push[s1->m2]": core.CapacityTrace.step(1.0, 0.9, 180.0),
+    })
+
+
+def fig12_runs(pkg):
+    """fig12_replication: local_push on the 8-site platform at alpha 1,
+    simulated under GGL with 1, 2 and 3 replicas (cross-cluster past 1):
+    {replicas: (makespan, push_end)}."""
+    c = pkg.core
+    p = c.planetlab_platform(8, alpha=1.0, seed=0)
+    plan = c.local_push_plan(p)
+    out = {}
+    for r in FIG12_REPLICATION:
+        res = c.simulate(p, plan, c.SimConfig(
+            barriers=c.BARRIERS_GGL, replication=r,
+            cross_cluster_replication=r > 1)).as_dict()
+        out[r] = (res["makespan"], res["push_end"])
+    return out
+
+
+def control_online(pkg, sched, policy, online, **kwargs):
+    """One ``run_online``, timed between two synchronizations: (report,
+    wall, the run's ``SolveTimeEMA``)."""
+    api = pkg.api
+    real = api.SolveTimeEMA
+    api.SolveTimeEMA = recorded = recording_ema(real)
+    recorded.made.clear()
+    try:
+        pkg.sync()
+        t = time.perf_counter()
+        report = sched.run_online(policy=policy, online=online, **kwargs)
+        pkg.sync()
+        wall = time.perf_counter() - t
+    finally:
+        api.SolveTimeEMA = real
+    return report, wall, recorded.made[0]
+
+
+def control_online_configs(pkg, policy, override, charge, measured):
+    """(label, OnlineConfig) of each run of a variant: the charge pinned,
+    then, where ``measured``, the EMA's (the policy's own config)."""
+    import dataclasses as dc
+
+    c = pkg.core
+    base = (c.get_online_config(policy) if override is None
+            else c.OnlineConfig(**override))
+    runs = [("pinned", dc.replace(base, solver_cost_s=charge))]
+    if measured:
+        runs.append(("measured", base))
+    return runs
+
+
+def control_failover(pkg, opt=CONTROL_OPT, charge=CONTROL_CHARGE_S, seed=0,
+                     measured=True):
+    """schedule_failover as paper_figures.py:554 builds it: the frozen
+    joint plan of the two jobs, simulated under the faults with 2 replicas
+    (audited), then ``run_online`` under each policy from the frozen plans.
+    Returns {"frozen": makespan, "plans": the frozen plans, "runs":
+    {(policy, label): (report, wall, ema)}}."""
+    import numpy as np
+
+    a, c = pkg.api, pkg.core
+    GGL = c.BARRIERS_GGL
+    d_steady, d_late = (np.array(d) for d in FAILOVER_D)
+    sub0 = failover_fabric(c)
+    frozen = a.GeoSchedule(
+        [a.GeoJob(sub0.view(d_steady, 1.0, name="steady")),
+         a.GeoJob(sub0.view(d_late, 1.0, name="late"))], **pkg.dev,
+    ).plan("joint", mode="e2e_multi", barriers=GGL, **opt)
+    plans = frozen.planned.plans
+    cfg = c.SimConfig(barriers=GGL, replication=2, audit=True)
+    subf = failover_fabric(c, failover_faults(c))
+    sv = subf.view(d_steady, 1.0, name="steady")
+    lv = subf.view(d_late, 1.0, name="late")
+    frozen_sim = c.simulate_schedule([(sv, plans[0], cfg), (lv, plans[1], cfg)],
+                                     substrate=subf)
+    runs = {}
+    for policy in FAILOVER_POLICIES:
+        for label, online in control_online_configs(pkg, policy, None, charge,
+                                                    measured):
+            sched = a.GeoSchedule(
+                [a.GeoJob(sv).with_plan(plans[0], GGL),
+                 a.GeoJob(lv).with_plan(plans[1], GGL)], **pkg.dev,
+            ).with_plans()
+            runs[policy, label] = control_online(pkg, sched, policy, online,
+                                                 cfg=cfg, seed=seed, **opt)
+    return {"frozen": frozen_sim.makespan, "plans": plans, "runs": runs}
+
+
+def control_online_shared(pkg, opt=CONTROL_OPT, charge=CONTROL_CHARGE_S,
+                          seed=0, measured=True):
+    """schedule_online_shared as paper_figures.py:446 builds it: the frozen
+    joint plan of both jobs simulated with the late one released at 50 s,
+    then the steady job planned alone and ``run_online`` under each variant
+    with the late job arriving on its frozen plan.  Returns {"frozen":
+    makespan, "plans": the frozen plans, "runs": {(variant, label):
+    (report, wall, ema)}}."""
+    import numpy as np
+
+    a, c = pkg.api, pkg.core
+    GGL = c.BARRIERS_GGL
+    sub = shared_online_fabric(c)
+    steady = a.GeoJob(sub.view(np.array(SHARED_D[0]), 1.0, name="steady"))
+    late_view = sub.view(np.array(SHARED_D[1]), 1.0, name="late")
+    cfg = c.SimConfig(barriers=GGL)
+    frozen = a.GeoSchedule([steady, a.GeoJob(late_view)], **pkg.dev).plan(
+        "joint", mode="e2e_multi", barriers=GGL, **opt)
+    plans = frozen.planned.plans
+    frozen_sim = c.simulate_schedule(
+        [(steady.platform, plans[0], cfg),
+         (late_view, plans[1], c.SimConfig(barriers=GGL,
+                                           start_time=SHARED_ARRIVAL_S))],
+        substrate=sub)
+    sched = a.GeoSchedule([steady], **pkg.dev).plan(
+        "independent", mode="e2e_multi", barriers=GGL, **opt)
+    runs = {}
+    for name, policy, override in SHARED_VARIANTS:
+        for label, online in control_online_configs(pkg, policy, override,
+                                                    charge, measured):
+            arrival = a.Arrival(a.GeoJob(late_view, **pkg.dev).with_plan(
+                plans[1], GGL), SHARED_ARRIVAL_S)
+            runs[name, label] = control_online(
+                pkg, sched, policy, online, arrivals=[arrival], cfg=cfg,
+                seed=seed, **opt)
+    return {"frozen": frozen_sim.makespan, "plans": plans, "runs": runs}
+
+
+def control_cells(failover, shared):
+    """The makespans 23a holds, keyed as ``REF_CONTROL``: each frozen
+    schedule's, and each pinned run's online and static one."""
+    cells = {"failover frozen": failover["frozen"],
+             "online_shared frozen": shared["frozen"]}
+    for scenario, out in (("failover", failover), ("online_shared", shared)):
+        for (name, label), (report, _, _) in out["runs"].items():
+            if label == "pinned":
+                cells[f"{scenario} {name}"] = report.makespan_online
+                cells[f"{scenario} {name} static"] = report.makespan_static
+    return cells
+
+
+def control_counts(out):
+    """(decisions, swaps, rejected) of each pinned run of a scenario."""
+    return {name: (len(r.decisions), len(r.swaps), len(r.rejected))
+            for (name, label), (r, _, _) in out["runs"].items()
+            if label == "pinned"}
+
+
+def control_bar(key, spread):
+    """A 23a or 23c makespan's relative bar: ``CONTROL_RTOL``, or where
+    the reference's anneals have not settled (its spread ``s`` over other
+    seeds and nudged inputs is over ``CONTROL_RTOL``) ``2 s + CONTROL_RTOL``:
+    the band its runs span about its own, extended by half its width each
+    side and widened by ``CONTROL_RTOL``, as phase 22's ``paper_bar``.  A
+    few of the reference's runs do not span the card's, another sample of
+    the same chaos: the card's first reactive_solo landed 1.84e-3 off
+    against a spread of 1.31e-3, and the reference's own run at another
+    seed 1.6e-3 off (tests/test_torch_control_plane.py)."""
+    s = spread.get(key, 0.0)
+    return 2 * s + CONTROL_RTOL if s > CONTROL_RTOL else CONTROL_RTOL
+
+
+def hold_control(label, got, want, rtol):
+    import numpy as np
+
+    rel = abs(got - want) / abs(want)
+    check(np.isfinite(got) and rel <= rtol,
+          f"{label}: {got!r} s, the reference's {want!r} s: relative "
+          f"{rel!r} over {rtol!r}")
+    print(f"{label}: {got!r} s, the reference's {want!r} s, relative "
+          f"{rel!r} (bar {rtol!r})")
+
+
+def check_online_run(label, report, shared):
+    """23a's and 23c's invariants of one ``run_online``: every plan valid,
+    both makespans finite, and at every adopted decision nothing modeled
+    worse than what it replaced (a shared stack's largest remaining, or a
+    solo swap's own)."""
+    import numpy as np
+    from repro_torch.core.plan import validate_plan
+
+    for plan in report.plans:
+        validate_plan(plan.x, plan.y)
+    for value in (report.makespan_online, report.makespan_static):
+        check(np.isfinite(value), f"{label}: makespan {value!r}")
+    if shared:
+        check(stack_never_rises(report.decisions),
+              f"{label}: an adopted stack's modeled remaining rose")
+    else:
+        worse = [d for d in report.swaps
+                 if d.modeled_after >= d.modeled_before]
+        check(not worse, f"{label}: swaps modeled worse: {worse}")
+
+
+def print_online_run(label, report, wall, ema, want=None):
+    print(f"{label}: wall {wall:.3f} s  online {report.makespan_online!r} s "
+          f" static {report.makespan_static!r} s  decisions "
+          f"{len(report.decisions)}  swaps {len(report.swaps)}  rejects "
+          f"{len(report.rejected)}  charged {report.charged_s!r} s  EMA "
+          f"charge {ema.charge_s()!r} s (warm solves {ema.samples}, first "
+          f"calls {ema.excluded})"
+          + ("" if want is None else
+             f"  (the reference's decisions, swaps, rejects {want})"))
+
+
+def phase_control_failover_shared(device, opt=CONTROL_OPT, ref=None,
+                                  spread=None, counts=None, fig12=None):
+    """Phase 23a: Fig 12's three DES runs, then schedule_failover and
+    schedule_online_shared at the quick budget on the card, each online run
+    with the charge pinned (held) and with the EMA's (invariants only)."""
+    from repro_torch.core.plan import validate_plan
+
+    ref = REF_CONTROL if ref is None else ref
+    spread = REF_CONTROL_SPREAD if spread is None else spread
+    counts = REF_CONTROL_COUNTS if counts is None else counts
+    fig12 = REF_FIG12 if fig12 is None else fig12
+    print("== phase 23a: failover, shared co-replanning and replication",
+          flush=True)
+    pkg = control_pkg(device)
+    got = fig12_runs(pkg)
+    for r, (span, push_end) in got.items():
+        check(span == fig12[r],
+              f"23a Fig 12, {r} replicas: makespan {span!r} s, the "
+              f"reference's {fig12[r]!r} s")
+        print(f"23a Fig 12, {r} replica(s): makespan {span!r} s (the "
+              f"reference's, bit for bit), push ends {push_end!r} s")
+    failover = control_failover(pkg, opt)
+    shared = control_online_shared(pkg, opt)
+    for scenario, out in (("failover", failover),
+                          ("online_shared", shared)):
+        for plan in out["plans"]:
+            validate_plan(plan.x, plan.y)
+        want = counts.get(scenario, {})
+        for (name, label), (report, wall, ema) in out["runs"].items():
+            tag = f"23a {scenario} {name} ({label} charge)"
+            check_online_run(tag, report, name != "reactive_solo")
+            print_online_run(tag, report, wall, ema,
+                             want.get(name) if label == "pinned" else None)
+    cells = control_cells(failover, shared)
+    for key, value in cells.items():
+        hold_control(f"23a {key}", value, ref[key], control_bar(key, spread))
+    margins = {}
+    for policy in FAILOVER_POLICIES:
+        for label in ("pinned", "measured"):
+            report = failover["runs"].get((policy, label), (None,))[0]
+            if report is not None:
+                margins[policy, label] = 1 - (report.makespan_online
+                                              / failover["frozen"])
+    ref_margin = 1 - ref["failover reactive_shared"] / ref["failover frozen"]
+    print("23a failover_margin: " + "  ".join(
+        f"{p} {label} {m!r}" for (p, label), m in margins.items())
+        + f"  (the reference's, pinned: {ref_margin!r})")
+    return {"fig12": got, "cells": cells, "margins": margins,
+            "walls": {f"{s} {n} {label}": w
+                      for s, out in (("failover", failover),
+                                     ("online_shared", shared))
+                      for (n, label), (_, w, _) in out["runs"].items()}}
+
+
+def planner_service(pkg, opt=PLANNER_OPT, ropt=PLANNER_REPLAN_OPT,
+                    warm=PLANNER_WARM, repeats=PLANNER_REPEATS):
+    """bench_planner's sequence (paper_figures.py:627): the solver counters
+    reset, a cold solve and ``warm`` warm ones on planetlab_platform(8, 1.0,
+    seed=3), a B = 8 ``optimize_plan_batch`` over the seeded views (once to
+    warm, once timed), their plans as incumbents, then ``replan_batch``
+    full and incremental, each warmed and taken best of ``repeats``.  Each
+    solve timed between two synchronizations."""
+    import numpy as np
+
+    c = pkg.core
+    p = c.planetlab_platform(8, alpha=1.0, seed=3)
+
+    def timed(fn, *args, **kwargs):
+        pkg.sync()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs, **pkg.dev)
+        pkg.sync()
+        return out, time.perf_counter() - t
+
+    c.reset_solver_cache_stats()
+    cold, cold_s = timed(c.optimize_plan, p, "e2e_multi", seed=0, **opt)
+    warm_runs = [timed(c.optimize_plan, p, "e2e_multi", seed=s, **opt)
+                 for s in range(1, warm + 1)]
+    lat = [s for _, s in warm_runs]
+    views = [c.planetlab_platform(8, alpha=1.0, seed=s) for s in range(8)]
+    seeds = list(range(10, 18))
+    timed(c.optimize_plan_batch, views, "e2e_multi", seeds=seeds, **opt)
+    batch, batch_s = timed(c.optimize_plan_batch, views, "e2e_multi",
+                           seeds=seeds, **opt)
+    incumbents = [r.plan for r in timed(
+        c.optimize_plan_batch, views, "e2e_multi", seeds=seeds, **opt)[0]]
+    replans, best = {}, {}
+    for incremental in (False, True):
+        timed(c.replan_batch, views, incumbents, seeds=seeds,
+              incremental=incremental, **ropt)
+    for incremental in (False, True):
+        walls = []
+        for _ in range(repeats):
+            res, s = timed(c.replan_batch, views, incumbents, seeds=seeds,
+                           incremental=incremental, **ropt)
+            walls.append(s)
+        replans[incremental], best[incremental] = res, min(walls)
+    uniform = c.makespan(p, c.uniform_plan(p))
+    return {
+        "cold_s": cold_s, "p50_ms": float(np.percentile(lat, 50) * 1e3),
+        "p99_ms": float(np.percentile(lat, 99) * 1e3),
+        "plans_per_s": len(views) / batch_s, "batch_s": batch_s,
+        "full_s": best[False], "incremental_s": best[True],
+        "stats": c.solver_cache_stats(),
+        "single": [cold] + [r for r, _ in warm_runs], "uniform": uniform,
+        "batch": batch, "views_uniform": [c.makespan(v, c.uniform_plan(v))
+                                          for v in views],
+        "incumbents": [r.makespan for r in batch], "replans": replans,
+    }
+
+
+def first_solve_main() -> None:
+    """``python3 chip_smoke.py --first-solve``: in a fresh process, the
+    first solve on the card split into its parts, each timed between two
+    synchronizations; one JSON line of (part, seconds)."""
+    t = time.perf_counter()
+    import torch
+
+    parts = [("import torch", time.perf_counter() - t)]
+    sys.path.insert(0, str(SRC))
+    t = time.perf_counter()
+    from repro_torch.core import optimize_plan, planetlab_platform
+
+    parts.append(("import repro_torch.core", time.perf_counter() - t))
+    dev = torch.device("cuda", 0)
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        parts.append((name, time.perf_counter() - t))
+        return out
+
+    part("CUDA context (the first allocation)",
+         lambda: torch.zeros(1, device=dev))
+    part("first RNG draw (the Philox generator)",
+         lambda: torch.rand(64, 64, device=dev))
+    a = torch.ones(64, 64, device=dev)
+    part("first cuBLAS handle (a 64 x 64 matmul)", lambda: a @ a)
+    part("torch.func's first trace (vmap of grad of a logsumexp)",
+         lambda: torch.func.vmap(torch.func.grad(
+             lambda v: torch.logsumexp(v, 0)))(a))
+    p = planetlab_platform(8, alpha=1.0, seed=3)
+    for name, seed, steps in (("first solve", 0, PLANNER_OPT["steps"]),
+                              ("second solve, the same key", 1,
+                               PLANNER_OPT["steps"]),
+                              ("a new key's first solve (one more step)", 2,
+                               PLANNER_OPT["steps"] + 1)):
+        part(f"{name} (optimize_plan e2e_multi {PLANNER_OPT['n_restarts']} x"
+             f" {steps})", lambda: optimize_plan(
+                 p, "e2e_multi", seed=seed, device=dev,
+                 n_restarts=PLANNER_OPT["n_restarts"], steps=steps))
+    print(json.dumps({"first_solve_parts": parts}), flush=True)
+
+
+def first_solve_breakdown():
+    """The process's first solve split into its parts (``--first-solve``)
+    in a fresh process, with CUDA's default lazy module loading and with
+    ``CUDA_MODULE_LOADING=EAGER`` (every kernel loaded with the context):
+    printed, not checked."""
+    import os
+
+    for loading in ("LAZY", "EAGER"):
+        env = dict(os.environ, CUDA_MODULE_LOADING=loading)
+        t = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--first-solve"],
+                env=env, capture_output=True, text=True,
+                timeout=FIRST_SOLVE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            print(f"23b first solve, CUDA_MODULE_LOADING={loading}: no result "
+                  f"in {FIRST_SOLVE_TIMEOUT_S} s")
+            continue
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith('{"first_solve_parts"')]
+        if proc.returncode != 0 or not lines:
+            print(f"23b first solve, CUDA_MODULE_LOADING={loading}: exit "
+                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+            continue
+        parts = json.loads(lines[-1])["first_solve_parts"]
+        print(f"23b the process's first solve, CUDA_MODULE_LOADING={loading} "
+              f"(a process of its own, {time.perf_counter() - t:.1f} s):")
+        for name, secs in parts:
+            print(f"  {name}: {secs!r} s")
+
+
+def phase_planner_service(device, opt=PLANNER_OPT, ropt=PLANNER_REPLAN_OPT,
+                          stats=None, first_solve=False):
+    """Phase 23b: the planner service (bench_planner) on the card: every
+    plan never worse than uniform, no replan (full or incremental) worse
+    than its incumbent, the solver counters the reference's for the
+    same call sequence; the latencies and rates printed.  With
+    ``first_solve`` (the phase alone), the process's first solve split
+    into its parts in a fresh process."""
+    from repro_torch.core.plan import validate_plan
+
+    stats = REF_PLANNER_STATS if stats is None else stats
+    print("== phase 23b: the planner service", flush=True)
+    out = planner_service(control_pkg(device), opt, ropt)
+    for r in out["single"]:
+        check(r.makespan <= out["uniform"] * (1 + 1e-9),
+              f"23b a single solve {r.makespan!r} s worse than uniform's "
+              f"{out['uniform']!r} s")
+        validate_plan(r.plan.x, r.plan.y)
+    for r, u in zip(out["batch"], out["views_uniform"]):
+        check(r.makespan <= u * (1 + 1e-9),
+              f"23b a batched plan {r.makespan!r} s worse than uniform's {u!r}")
+    for incremental, res in out["replans"].items():
+        worse = sum(r.makespan > b + 1e-9
+                    for r, b in zip(res, out["incumbents"]))
+        check(worse == 0, f"23b {worse} of {len(res)} replans (incremental "
+                          f"{incremental}) modeled worse than the incumbent")
+    check(out["stats"] == stats,
+          f"23b solver counters {out['stats']}, the reference's {stats}")
+    print(f"23b {opt['n_restarts']} x {opt['steps']}: cold {out['cold_s']!r} "
+          f"s; warm p50 {out['p50_ms']!r} ms, p99 {out['p99_ms']!r} ms "
+          f"({PLANNER_WARM} solves); warm over cold "
+          f"{out['cold_s'] / (out['p50_ms'] / 1e3)!r}x; B = 8 "
+          f"optimize_plan_batch {out['batch_s']!r} s, {out['plans_per_s']!r}"
+          f" plans/s")
+    print(f"23b replan_batch B = 8 at {ropt['n_restarts']} x {ropt['steps']},"
+          f" best of {PLANNER_REPEATS}: full {out['full_s']!r} s, incremental"
+          f" {out['incremental_s']!r} s, speedup "
+          f"{out['full_s'] / out['incremental_s']!r}x; solver counters "
+          f"{out['stats']} (the reference's)")
+    if first_solve:
+        first_solve_breakdown()
+    return out
+
+
+def scale_online_setup(pkg, tier=SCALE_TIER, mix=SCALE_MIX, live=SCALE_LIVE):
+    """online_1000 as paper_figures.py:934-958 builds it, on ``tier``'s
+    substrate: (substrate, the live jobs, their configs, the arrivals)."""
+    import numpy as np
+
+    a, c = pkg.api, pkg.core
+    sub0 = c.scale_tier_substrate(**tier)
+    cluster_r = np.asarray(sub0.cluster_r)
+    browned = np.flatnonzero(cluster_r == cluster_r[0])
+    C_r = np.asarray(sub0.C_r)
+    t_brown, share = SCALE_BROWNOUT
+    sub = sub0.with_traces({
+        f"reduce[r{k}]": c.CapacityTrace.step(float(C_r[k]),
+                                             float(C_r[k]) * share, t_brown)
+        for k in browned})
+    entries = c.scale_job_mix(sub, **mix, base_cfg=c.SimConfig(mode="fluid"))
+    order = np.argsort([cfg.start_time for _, _, cfg in entries])
+    jobs, cfgs, arrivals = [], [], []
+    for i in order[:live]:
+        pv, pl, cfg = entries[int(i)]
+        jobs.append(a.GeoJob(pv, **pkg.dev).with_plan(pl, cfg.barriers))
+        cfgs.append(cfg)
+    late = order[live:]
+    for n, i in enumerate(late):
+        pv, pl, cfg = entries[int(i)]
+        arrivals.append(a.Arrival(
+            a.GeoJob(pv, **pkg.dev).with_plan(pl, cfg.barriers),
+            SCALE_ARRIVALS_S[0] if n < len(late) // 2 else SCALE_ARRIVALS_S[1],
+            cfg=cfg))
+    return sub, jobs, cfgs, arrivals
+
+
+def scale_online(pkg, setup, opt=CONTROL_OPT, charge=SCALE_CHARGE_S,
+                 seed=0, hysteresis=1.0):
+    """online_1000's ``run_online`` (paper_figures.py:959-966), timed
+    between two synchronizations: (report, wall)."""
+    a = pkg.api
+    sub, jobs, cfgs, arrivals = setup
+    sched = a.GeoSchedule(jobs, **pkg.dev).with_plans()
+    pkg.sync()
+    t = time.perf_counter()
+    report = sched.run_online(
+        policy="reactive_shared", arrivals=arrivals, cfg=cfgs, seed=seed,
+        online=a.OnlineConfig(shared=True, hysteresis=hysteresis,
+                              incremental=True, solver_cost_s=charge), **opt)
+    pkg.sync()
+    return report, time.perf_counter() - t
+
+
+def scale_numbers(report, wall, n_nodes):
+    return {"n_nodes": n_nodes, "decisions": len(report.decisions),
+            "swaps": len(report.swaps), "rejected": len(report.rejected),
+            "makespan": report.makespan_online,
+            "static_makespan": report.makespan_static,
+            "online_margin": report.improvement, "wall_s": wall,
+            "decisions_per_s": len(report.decisions) / wall if wall else 0.0}
+
+
+def profile_anneal(solve, steps, sessions=3):
+    """Busy share and device events a step of ``solve`` (one anneal of
+    ``steps`` steps) on the card, from a profiler session that traces a
+    warm-up call, dropped, before the one it keeps; a trace counts only
+    where every kernel launch the host made in the kept call has its
+    kernel on the device, else the session is made again, up to
+    ``sessions``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                solve()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                prof.step()
+        events = prof.events()
+        cuda = torch.autograd.DeviceType.CUDA
+        kernels = sum(e.device_type == cuda
+                      and not e.name.startswith(("Memcpy", "Memset"))
+                      for e in events)
+        launched = sum(e.device_type != cuda
+                       and e.name.startswith(("cudaLaunch", "cuLaunch"))
+                       for e in events)
+        busy_us, n_events, _ = device_activity(prof)
+        # the trace is whole where every launch the host made has its
+        # kernel (it records one kernel more than the launches counted)
+        if launched and kernels >= launched:
+            print(f"23c one decision's anneal ({steps} steps) under the "
+                  f"profiler: wall {wall!r} s, device busy "
+                  f"{busy_us / 1e6!r} s, busy share {busy_us / 1e6 / wall!r},"
+                  f" device events {n_events} ({n_events / steps!r} a step),"
+                  f" kernels {kernels} of {launched} launched")
+            return {"wall_s": wall, "busy_s": busy_us / 1e6,
+                    "busy_share": busy_us / 1e6 / wall,
+                    "events_per_step": n_events / steps}
+        print(f"  profiler session {session} of {sessions} recorded {kernels}"
+              f" kernels of {launched} launches: no device time from it")
+    print("23c no complete trace of the anneal")
+    return None
+
+
+def scale_anneal_vs_cpu(device, recorded):
+    """One decision's anneal, from the inputs the card's run gave it, on the
+    card and on the CPU: held in float64 (x, y atol 1e-4, the exact
+    objective rtol 1e-4); the float32 runs, as the path runs them, printed
+    beside the CPU's float32 run against its float64 one (at these inputs
+    float32 rounding alone moves x by more than 1e-4:
+    tests/test_torch_control_plane.py)."""
+    import torch
+    from repro_torch.core import optimize as O
+
+    args, kwargs = recorded
+    cpu = torch.device("cpu")
+
+    def solve(dev, dtype):
+        moved = [tuple(t.to(dev, dtype) for t in arg)
+                 if isinstance(arg, tuple) else arg.to(dev, dtype)
+                 for arg in args]
+        return [t.cpu() for t in O._solve_residual_shared_batch(*moved,
+                                                                **kwargs)]
+
+    def dist(a, b):
+        return ((a[0] - b[0]).abs().max().item(),
+                (a[1] - b[1]).abs().max().item(),
+                ((a[2] - b[2]).abs() / b[2].abs()).max().item())
+
+    card64, cpu64 = solve(device, torch.float64), solve(cpu, torch.float64)
+    name = "_solve_residual_shared_batch"
+    errs = (_held(f"23c {name} float64 x", card64[0], cpu64[0], 1e-4),
+            _held(f"23c {name} float64 y", card64[1], cpu64[1], 1e-4),
+            _held(f"23c {name} float64 exact", card64[2], cpu64[2], 0.0,
+                  1e-4))
+    print(f"23c {name}, logits {tuple(args[4].shape)}, {kwargs['steps']} "
+          f"steps in float64, card against CPU: max |err| x {errs[0]!r}, y "
+          f"{errs[1]!r}, exact {errs[2]!r} s (x, y atol 1e-4; exact rtol "
+          "1e-4)")
+    card32, cpu32 = solve(device, torch.float32), solve(cpu, torch.float32)
+    print(f"unchecked: in float32, as the path runs it, max |err| x, y, exact"
+          f" relative: card against CPU {dist(card32, cpu32)!r}; card against "
+          f"the float64 CPU run {dist(card32, cpu64)!r}; CPU against it "
+          f"{dist(cpu32, cpu64)!r}")
+    return errs
+
+
+def phase_scale_online(device, tier=SCALE_TIER, mix=SCALE_MIX,
+                       live=SCALE_LIVE, opt=CONTROL_OPT, ref=None,
+                       spread=None):
+    """Phase 23c: online_1000 on the card: decisions and swaps the
+    reference's (or within its spread), the makespan within its bar, a
+    positive online margin, every plan valid and no adopted stack modeled
+    worse; one decision's anneal held card against CPU and profiled."""
+    import numpy as np
+    import torch
+    from repro_torch.core import optimize as O
+
+    ref = REF_SCALE if ref is None else ref
+    spread = REF_SCALE_SPREAD if spread is None else spread
+    print("== phase 23c: online_1000, the 1000-node tier online", flush=True)
+    pkg = control_pkg(device)
+    t = time.perf_counter()
+    setup = scale_online_setup(pkg, tier, mix, live)
+    sub = setup[0]
+    n_nodes = sub.nS + sub.nM + sub.nR
+    print(f"23c substrate {sub.nS} edges, {sub.nM} mappers, {sub.nR} reducers"
+          f" ({n_nodes} nodes), {len(setup[1])} live jobs and "
+          f"{len(setup[3])} arrivals built in {time.perf_counter() - t:.1f} s")
+    real = O._solve_residual_shared_batch
+    anneals, held = [], []
+
+    def recording(*args, **kwargs):
+        anneals.append((tuple(args[4].shape), kwargs["steps"],
+                        kwargs["kappa"], args[4].device.type))
+        if not held and args[4].shape[1] == O._INCREMENTAL_STACK_CAP:
+            held.append(([tuple(a.detach().cpu() for a in arg)
+                          if isinstance(arg, tuple) else arg.detach().cpu()
+                          for arg in args], dict(kwargs)))
+        return real(*args, **kwargs)
+
+    if device.type == "cuda":
+        # the allocator's counters exist once CUDA is set up in the process
+        _sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    O._solve_residual_shared_batch = recording
+    try:
+        report, wall = scale_online(pkg, setup, opt)
+    finally:
+        O._solve_residual_shared_batch = real
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else float("nan"))
+    got = scale_numbers(report, wall, n_nodes)
+    check_online_run("23c online_1000", report, True)
+    check(all(dev == device.type for *_, dev in anneals),
+          f"23c an anneal ran off {device}: {anneals}")
+    n_eff, steps_eff = O._shared_incremental_budget(
+        opt["n_restarts"], opt["steps"], live)
+    check(anneals and all(a[:2] == ((n_eff, O._INCREMENTAL_STACK_CAP,
+                                     sub.nS, sub.nM), steps_eff)
+                          for a in anneals),
+          f"23c anneals {anneals}, not {n_eff} restarts x "
+          f"{O._INCREMENTAL_STACK_CAP} jobs x {steps_eff} steps")
+    print(f"23c {len(anneals)} co-replans, each {n_eff} restarts x "
+          f"{O._INCREMENTAL_STACK_CAP} jobs (the stack cap) x {steps_eff} "
+          f"steps, logits {anneals[0][0]} float32 "
+          f"({np.prod(anneals[0][0]) * 4 / 1e6:.1f} MB), kappa "
+          f"{[a[2] for a in anneals]}")
+    lo, hi = spread.get("decisions", (ref["decisions"], ref["decisions"]))
+    check(lo <= got["decisions"] <= hi,
+          f"23c {got['decisions']} decisions, the reference's "
+          f"{ref['decisions']} (its spread {lo}-{hi})")
+    lo, hi = spread.get("swaps", (ref["swaps"], ref["swaps"]))
+    check(lo <= got["swaps"] <= hi,
+          f"23c {got['swaps']} swaps, the reference's {ref['swaps']} (its "
+          f"spread {lo}-{hi})")
+    hold_control("23c makespan", got["makespan"], ref["makespan"],
+                 control_bar("makespan", spread))
+    hold_control("23c static makespan", got["static_makespan"],
+                 ref["static_makespan"], CONTROL_RTOL)
+    check(got["online_margin"] > 0,
+          f"23c online_margin {got['online_margin']!r}")
+    print(f"23c online_1000: wall {wall!r} s (the reference's CI budget "
+          f"{SCALE_BUDGET_S} s, its recorded run {REF_SCALE_RECORD['wall_s']!r}"
+          f" s), decisions {got['decisions']} (the reference's "
+          f"{ref['decisions']}), swaps {got['swaps']} ({ref['swaps']}), "
+          f"rejected {got['rejected']} ({ref['rejected']}), decisions_per_s "
+          f"{got['decisions_per_s']!r} (its record "
+          f"{REF_SCALE_RECORD['decisions_per_s']!r}), makespan "
+          f"{got['makespan']!r} s, static {got['static_makespan']!r} s, "
+          f"online_margin {got['online_margin']!r} (the reference's "
+          f"{ref['online_margin']!r}); peak device memory {peak!r} GB")
+    check(bool(held), "23c no anneal at the stack cap to hold")
+    errs = scale_anneal_vs_cpu(device, held[0])
+    prof = None
+    if device.type == "cuda":
+        args, kwargs = held[0]
+        moved = [tuple(a.to(device) for a in arg) if isinstance(arg, tuple)
+                 else arg.to(device) for arg in args]
+        prof = profile_anneal(lambda: real(*moved, **kwargs), kwargs["steps"])
+    return dict(got, peak_gb=peak, anneals=len(anneals), held_errs=errs,
+                profile=prof)
+
+
+#: phase 23's parts; in the whole script each runs in a process of its
+#: own, the three at once (``run_control_parts``): their host work (the
+#: solver's launches, the DES and the fluid executor) overlaps, and the
+#: card is idle most of the time in each
+CONTROL_PARTS = ("23a", "23b", "23c")
+CONTROL_TIMEOUT_S = 900
+
+
+def control_part(name):
+    """The function of a phase-23 part."""
+    return {"23a": phase_control_failover_shared,
+            "23b": phase_planner_service,
+            "23c": phase_scale_online}[name]
+
+
+def control_summary(name, out):
+    """What a part's result reports, as JSON takes it."""
+    if name == "23a":
+        return {"cells": out["cells"], "walls": out["walls"],
+                "margins": {" ".join(k): v for k, v in out["margins"].items()},
+                "fig12": {str(r): v for r, v in out["fig12"].items()}}
+    if name == "23b":
+        return {k: out[k] for k in ("cold_s", "p50_ms", "p99_ms", "batch_s",
+                                    "plans_per_s", "full_s", "incremental_s",
+                                    "stats")}
+    return out
+
+
+def control_part_main(name, device_name="cuda", kwargs="{}") -> None:
+    """``python3 chip_smoke.py --control-part <23a|23b|23c> [cuda|cpu]
+    [JSON keyword arguments]``: one part of phase 23 in a process of its
+    own, every kernel's launches counted from 0; its seconds, launches and
+    result as one JSON line, last.  On the CPU it takes one torch thread
+    (the three parts run at once)."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    import repro_torch
+
+    device = (torch.device("cuda", 0) if device_name == "cuda"
+              else torch.device(device_name))
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    repro_torch.set_default_device(device)
+    kw = json.loads(kwargs)
+    if "fig12" in kw:
+        kw["fig12"] = {int(r): v for r, v in kw["fig12"].items()}
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    out = control_part(name)(device, **kw)
+    s = time.perf_counter() - t
+    print(json.dumps({"control_part": name, "s": s,
+                      "launches": {k: w.launches for k, w in wrappers.items()},
+                      "out": control_summary(name, out)}, default=float),
+          flush=True)
+
+
+def start_control_parts(device, kwargs=None):
+    """Start phase 23's parts at once, each in a process of its own on
+    ``device`` (``control_part_main``, with ``kwargs[name]``); they are
+    stopped when this process exits.  Returns what
+    ``finish_control_parts`` takes."""
+    import atexit
+    import os
+    import tempfile
+
+    kwargs = kwargs or {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    procs = {}
+    for name in CONTROL_PARTS:
+        with open(os.path.join(workdir, f"{name}.log"), "w") as log:
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--control-part", name, device.type,
+                 json.dumps(kwargs.get(name, {}))],
+                stdout=log, stderr=subprocess.STDOUT)
+
+    def stop():
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)
+    return workdir, procs, stop, time.perf_counter()
+
+
+def finish_control_parts(started, timeout=CONTROL_TIMEOUT_S):
+    """Wait for the parts ``start_control_parts`` started, up to
+    ``timeout`` from their start, stop any left, and print each one's
+    output in turn.  Fails if one did not end with its result.  Returns
+    the results by part and the seconds waited here."""
+    import os
+    import shutil
+
+    workdir, procs, stop, t_start = started
+    t = time.perf_counter()
+    for p in procs.values():
+        try:
+            p.wait(timeout=max(t_start + timeout - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+    stop()
+    waited = time.perf_counter() - t
+    results = {}
+    for name, p in procs.items():
+        text = open(os.path.join(workdir, f"{name}.log")).read()
+        print(text, end="" if text.endswith("\n") else "\n", flush=True)
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith('{"control_part"')]
+        check(p.returncode == 0 and bool(lines),
+              f"phase {name}, in a process of its own: exit {p.returncode}"
+              f" (its output above)")
+        results[name] = json.loads(lines[-1])
+    shutil.rmtree(workdir, ignore_errors=True)
+    return results, waited
+
+
+def phase_control_plane(device, a=None, b=None, c=None, first_solve=False,
+                        started=None):
+    """Phase 23: 23a, 23b and 23c (each sub-phase's keyword arguments in
+    ``a``, ``b``, ``c``) in turn in this process, or, where ``started``,
+    the parts ``start_control_parts`` started (at once, each in a process
+    of its own), waited for here; every kernel's launches counted from 0:
+    none may launch (nothing here executes a reduce or serves a model)."""
+    t0 = time.perf_counter()
+    out, secs, launches = {}, {}, {}
+    if started is not None:
+        results, waited = finish_control_parts(started)
+        for name, r in results.items():
+            out[name], secs[name] = r["out"], r["s"]
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        t0 = started[3]
+        print("phase 23's parts at once, each in a process of its own: "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+              + f"; waited {waited:.1f} s for them here; "
+              f"{time.perf_counter() - _T0:.1f} s into the run", flush=True)
+    else:
+        kwargs = {"23a": a or {},
+                  "23b": dict(b or {}, first_solve=first_solve),
+                  "23c": c or {}}
+        wrappers = _wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        for name in CONTROL_PARTS:
+            t = time.perf_counter()
+            out[name] = control_part(name)(device, **kwargs[name])
+            secs[name] = time.perf_counter() - t
+            print(f"phase {name}: {secs[name]:.1f} s; "
+                  f"{time.perf_counter() - _T0:.1f} s into the run",
+                  flush=True)
+        launches = {name: w.launches for name, w in wrappers.items()}
+    check(not any(launches.values()),
+          f"phase 23 launched kernels: {launches}")
+    s = time.perf_counter() - t0
+    card = f" on {card_name_and_limit()}" if device.type == "cuda" else ""
+    print(f"phase 23: {s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in secs.items())
+        + f"{'' if started is None else ', at once'}); kernel launches "
+        f"{launches}{card}", flush=True)
+    return dict(out, launches=launches, s=s, secs=secs)
+
+
+#: the reference's numbers phase 23 holds, from its CPU run at
+#: ``CONTROL_OPT`` (``print_tables`` of tests/test_torch_control_plane.py,
+#: which also holds them to a fresh reference run): Fig 12's makespans;
+#: 23a's frozen and pinned online and static makespans; each pinned run's
+#: (decisions, swaps, rejections); the spread of each makespan over
+#: ``CONTROL_SPREAD_SEEDS`` and ``CONTROL_SPREAD_NUDGES`` where it is more
+#: than ``CONTROL_RTOL``
+REF_FIG12 = {1: 508.3860265318138, 2: 1252.5992402530353,
+             3: 1545.961223541104}
+REF_CONTROL = {
+    'failover frozen': 419.0402019684004,
+    'online_shared frozen': 540.0272386021852,
+    'failover reactive_shared': 205.04193736984178,
+    'failover reactive_shared static': 419.0402019684004,
+    'failover reactive_failover': 205.04193736984178,
+    'failover reactive_failover static': 419.0402019684004,
+    'online_shared reactive_solo': 462.746484123336,
+    'online_shared reactive_solo static': 439.26560983625933,
+    'online_shared reactive_shared': 422.54333846802155,
+    'online_shared reactive_shared static': 439.26560983625933,
+    'online_shared shared_no_hysteresis': 422.54377772367735,
+    'online_shared shared_no_hysteresis static': 439.26560983625933,
+}
+REF_CONTROL_COUNTS = {
+    'failover': {'reactive_shared': (2, 1, 1), 'reactive_failover': (2, 1, 1)},
+    'online_shared': {'reactive_solo': (8, 5, 0),
+                      'reactive_shared': (9, 4, 2),
+                      'shared_no_hysteresis': (9, 6, 0)},
+}
+REF_CONTROL_SPREAD = {
+    'failover frozen': 0.027487850653739043,
+    'failover reactive_shared': 0.024217292042393535,
+    'failover reactive_shared static': 0.027487850653739043,
+    'failover reactive_failover': 0.024217292042393535,
+    'failover reactive_failover static': 0.027487850653739043,
+    'online_shared reactive_solo': 0.0013147857233983817,
+    'online_shared reactive_shared': 0.02375967239426835,
+    'online_shared shared_no_hysteresis': 0.0237606872455286,
+}
+#: bench_planner's solver counters for phase 23b's call sequence
+REF_PLANNER_STATS = {'calls': 20, 'hits': 16, 'misses': 4, 'compiles': 4,
+                     'entries': 4, 'shapes': 4}
+#: online_1000 at run_online's seed 0, and over seeds 0-2 the range of its
+#: decisions and swaps and the largest relative move of its makespan
+REF_SCALE = {
+    'n_nodes': 996,
+    'decisions': 261,
+    'swaps': 48,
+    'rejected': 0,
+    'makespan': 7354.0453869752755,
+    'static_makespan': 13207.19648060636,
+    'online_margin': 0.4431789215997458,
+}
+REF_SCALE_SPREAD = {
+    'decisions': (260, 261),
+    'swaps': (48, 48),
+    'makespan': 0.025436233471816894,
+}
+#: the reference's recorded online_1000 (benchmarks/baseline.json: jax
+#: 0.4.37, ``--quick``, on a CPU host), printed beside the card's
+REF_SCALE_RECORD = {"wall_s": 44.78866241000287,
+                    "decisions_per_s": 5.827367596084084}
+
 def free_device_memory(device) -> None:
     """Return what the finished phases held to the card; print the run's
     wall so far."""
@@ -7693,7 +8661,8 @@ def free_device_memory(device) -> None:
     if device.type == "cuda":
         torch.cuda.empty_cache()
         print(f"device memory allocated after freeing: "
-              f"{torch.cuda.memory_allocated(device) / 1e9!r} GB; "
+              f"{torch.cuda.memory_allocated(device) / 1e9!r} GB, reserved "
+              f"{torch.cuda.memory_reserved(device) / 1e9!r} GB; "
               f"{time.perf_counter() - _T0:.1f} s into the run")
 
 
@@ -7771,6 +8740,14 @@ def main() -> None:
     free_device_memory(device)
     moe["launches_by_path"] = {GRANITE_ARCH: moe["launches"],
                                "expert parallel (14b)": 0}
+    # phase 23's parts run at once, each in a process of its own, beside
+    # phases 14 to 16 (solves, host tracing, one-rank meshes and two ranks
+    # on one card, whose walls say nothing of a multi-card step): their
+    # host work overlaps, and each uses a few GB of the card.  Not before
+    # phase 21: run after phase 22, phase 23 left 32 MiB more allocated on
+    # the card, and phase 21b's AdamW step, whose peak is 10 GB under the
+    # card's size, ran out of memory (8.85 GiB reserved but unallocated)
+    control_parts = start_control_parts(device)
     for w in _lm_kernels().values():
         w.launches = 0
     (ep_launches, one_launches), mesh_14d = phase_multidevice(device)
@@ -7783,6 +8760,8 @@ def main() -> None:
     phase_dryrun(device)
     free_device_memory(device)
     tp_launches = phase_tensor_parallel(device, mesh_14d)
+    free_device_memory(device)
+    control = phase_control_plane(device, started=control_parts)
     free_device_memory(device)
     example_launches, example_err = phase_examples(device)
     free_device_memory(device)
@@ -7865,6 +8844,14 @@ def main() -> None:
     print(f"phase 20: {sum(r['s'] for r in f32.values()):.1f} s ("
           + ", ".join(f"{p} {r['s']:.1f} s" for p, r in f32.items())
           + f") on {card_name_and_limit()}", flush=True)
+    # phase 23: the control plane launches no kernel (checked there)
+    for e in entries:
+        e.setdefault("launches_by_path", {"serving": e["launches"]})
+        e["launches_by_path"]["control plane (23)"] = \
+            control["launches"][e["name"]]
+    print(f"phase 23: {control['s']:.1f} s (" + ", ".join(
+        f"{p} {s:.1f} s" for p, s in control["secs"].items())
+        + f") on {card_name_and_limit()}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
@@ -7877,5 +8864,9 @@ if __name__ == "__main__":
         tp_rank_main(int(sys.argv[2]), sys.argv[3])
     elif len(sys.argv) == 3 and sys.argv[1] == "--rglru-profile":
         rglru_profile_main(sys.argv[2])
+    elif len(sys.argv) == 2 and sys.argv[1] == "--first-solve":
+        first_solve_main()
+    elif 3 <= len(sys.argv) <= 5 and sys.argv[1] == "--control-part":
+        control_part_main(*sys.argv[2:])
     else:
         main()

@@ -36,11 +36,17 @@ PlanetLab platforms, the barrier relaxations, the model against the DES,
 the three applications executed, the dynamic mechanisms; ``22a``..``22e``
 each alone; ``22`` and ``22d`` run phase 2 first, whose word count run is
 22d's word count row, and 22b, 22c and 22e alone solve the plans they
-otherwise take from 22a or 22d), after phase 1 (the card's name and power
-limit, and the kernels built).  Phases 6a, 8a and 10a run on stand-in
+otherwise take from 22a or 22d), ``23`` the control plane at the
+reference's scale (``23a`` failover, shared co-replanning and Fig 12's
+replication, ``23b`` the planner service, with the process's first solve
+split into its parts in a fresh process, ``23c`` the 1000-node / 100-job
+``online_1000``; each alone, and ``23`` all three in turn, every kernel's
+launches counted from 0), after phase 1 (the card's name and power limit,
+and the kernels built).  Phases 6a, 8a and 10a run on stand-in
 launch counts (they print their kernels-line entries).  Needs a CUDA card.
 
-To rehearse phase 22 on the CPU, see ``tests/test_torch_paper_figures.py``.
+To rehearse phase 22 on the CPU, see ``tests/test_torch_paper_figures.py``;
+phase 23, ``tests/test_torch_control_plane.py``.
 """
 import argparse
 import json
@@ -54,7 +60,7 @@ ap.add_argument("phases", nargs="+", choices=[
     "5", "6a", "7", "8a", "10a", "10b", "14", "15", "16", "17", "18",
     "18w", "18a", "18b", "18c", "18d", "18e", "18f", "19", "19a", "19b",
     "19c", "20", "20a", "20b", "20c", "20d", "21", "21a", "21b", "21c",
-    "22", "22a", "22b", "22c", "22d", "22e"])
+    "22", "22a", "22b", "22c", "22d", "22e", "23", "23a", "23b", "23c"])
 args = ap.parse_args()
 tree = Path(args.tree).resolve()
 sys.path[:0] = [str(tree), str(tree / "src")]
@@ -127,6 +133,20 @@ for phase in args.phases:
                                                   "s")}))
         else:
             C.paper_apps(device, wc_row)
+    elif phase == "23":
+        out = C.phase_control_plane(device, first_solve=True)
+        print(json.dumps({k: out[k] for k in ("launches", "secs", "s")}))
+    elif phase == "23a":
+        print(json.dumps(C.phase_control_failover_shared(device)["cells"]))
+    elif phase == "23b":
+        out = C.phase_planner_service(device, first_solve=True)
+        print(json.dumps({k: out[k] for k in ("cold_s", "p50_ms", "p99_ms",
+                                              "plans_per_s", "full_s",
+                                              "incremental_s", "stats")}))
+    elif phase == "23c":
+        out = C.phase_scale_online(device)
+        print(json.dumps({k: v for k, v in out.items()
+                          if k not in ("profile", "held_errs")}))
     elif phase.startswith("22"):
         {"22a": C.paper_modes, "22b": C.paper_barriers, "22c": C.paper_des,
          "22e": C.paper_dynamics}[phase](device)
